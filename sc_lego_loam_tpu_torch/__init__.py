@@ -2,16 +2,17 @@
 
 Same module layout as the JAX package (``ops/projection.py`` here is the
 counterpart of ``ops/projection.py`` there), plain functions on tensors,
-``NamedTuple``s of tensors for state.  The scan-to-map k-NN runs in a
-hand-written CUDA kernel (``csrc/knn.cu``) for CUDA tensors; everything
-else is eager torch.
+``NamedTuple``s of tensors for state.  The scan-to-map 5-NN and the ICP
+1-NN run in a hand-written CUDA kernel (``csrc/knn.cu``) for CUDA tensors;
+everything else is eager torch.
 
-This first slice covers the odometry + scan-to-map engine with loop
-closure and IMU off (``SlamEngine`` refuses either).  Configuration is
-shared with the JAX package (``sc_lego_loam_tpu.config`` is framework-free).
-No module of this package imports jax.
+The engine runs odometry, scan-to-map and loop closure (Scan Context and
+radius detection, ICP through the CUDA kNN at k=1, pose-graph re-solve);
+the IMU path is not ported and ``SlamEngine`` refuses it.  The package has
+its own ``config`` and ``utils/synthetic`` and imports nothing of the JAX
+package, and no module of it imports jax.
 """
 
-from sc_lego_loam_tpu.config import (  # noqa: F401
+from .config import (  # noqa: F401
     PipelineConfig, default_config, tiny_test_config,
 )

@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from sc_lego_loam_tpu.config import PipelineConfig
+from .config import PipelineConfig
 
 from .ops import compaction, ground, projection, segmentation
 

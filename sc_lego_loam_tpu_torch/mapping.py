@@ -4,9 +4,10 @@
 - Keyframe clouds live in preallocated (max_keyframes x pad) tensors with
   a count; a keyframe write is an in-place ``index_copy_`` at the device
   slot ``count`` (the bank is ~3 GB at full size, so it is never copied).
-- Loop closure OFF (the only mode this slice runs): the submap is the
-  nearest ``submap_recent_num`` keyframes within ``submap_search_radius``
-  of the latest pose, transformed to the world frame and voxel-decimated.
+- The submap is the ``submap_recent_num`` most recent keyframes with loop
+  closure ON, and the nearest ones within ``submap_search_radius`` of the
+  latest pose with it OFF, transformed to the world frame and
+  voxel-decimated.
 - Scan-to-map is a 6-DOF Gauss-Newton on an se(3) twist: per research a
   5-NN in the submap (the CUDA kernel on the card), line fits by closed-
   form 3x3 eigen, plane fits by 3x3 normal equations, robust weights,
@@ -21,7 +22,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
-from sc_lego_loam_tpu.config import PipelineConfig
+from .config import PipelineConfig
 
 from .ops import cuda_knn, solver, voxel
 from .ops.compact import compact
@@ -99,22 +100,26 @@ def _top_k(score: torch.Tensor, k: int):
 def build_submap(config: PipelineConfig, kf: KeyframeStore):
     """Union of the selected keyframe clouds in the world frame,
     voxel-decimated (extractSurroundingKeyFrames; corner 0.2, surf+outlier
-    0.3, mO.cpp:1223-1230).  Loop closure OFF: the nearest keyframes within
-    ``submap_search_radius`` of the latest pose (mO.cpp:1167-1222), capped
-    at ``submap_recent_num`` to keep shapes static."""
-    if config.loop.enabled:
-        raise NotImplementedError("the loop-closure submap is not ported")
+    0.3, mO.cpp:1223-1230).  Loop closure ON: the ``submap_recent_num``
+    most recent keyframes (mO.cpp:1127-1166 deque path).  OFF: the nearest
+    keyframes within ``submap_search_radius`` of the latest pose
+    (mO.cpp:1167-1222), capped at the same count to keep shapes static."""
     cap, m = config.cap, config.mapping
     R = m.submap_recent_num
     dev = kf.poses6.device
-    last = torch.clamp(kf.count.to(torch.int64) - 1, min=0).reshape(1)
-    cur = kf.poses6[last, 3:6]                                   # (1,3)
-    d = torch.linalg.vector_norm(kf.poses6[:, 3:6] - cur, dim=-1)
-    ok = (torch.arange(cap.max_keyframes, device=dev) < kf.count) & \
-         (d < m.submap_search_radius)
-    score = torch.where(ok, -d, -torch.inf)
-    score_k, idx = _top_k(score, R)
-    sel_ok = torch.isfinite(score_k)
+    if config.loop.enabled:
+        back = kf.count.to(torch.int64) - 1 - torch.arange(R, device=dev)
+        idx = torch.clamp(back, 0, cap.max_keyframes - 1)
+        sel_ok = back >= 0
+    else:
+        last = torch.clamp(kf.count.to(torch.int64) - 1, min=0).reshape(1)
+        cur = kf.poses6[last, 3:6]                               # (1,3)
+        d = torch.linalg.vector_norm(kf.poses6[:, 3:6] - cur, dim=-1)
+        ok = (torch.arange(cap.max_keyframes, device=dev) < kf.count) & \
+             (d < m.submap_search_radius)
+        score = torch.where(ok, -d, -torch.inf)
+        score_k, idx = _top_k(score, R)
+        sel_ok = torch.isfinite(score_k)
 
     poses = se3.pose6_to_mat(kf.poses6[idx])                     # (R,4,4)
 

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
-from sc_lego_loam_tpu.config import PipelineConfig
+from .config import PipelineConfig
 
 from .ops import residuals, solver
 from .ops.features import FeatureCloud, FeatureSet, empty_cloud

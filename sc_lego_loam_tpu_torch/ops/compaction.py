@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from sc_lego_loam_tpu.config import LidarConfig, SegmentationConfig
+from ..config import LidarConfig, SegmentationConfig
 
 from .projection import RangeImage
 from .segmentation import Segmentation

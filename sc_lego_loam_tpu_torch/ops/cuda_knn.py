@@ -1,4 +1,4 @@
-"""Scan-to-map k-NN on the card: the hand-written CUDA kernel in
+"""Scan-to-map 5-NN and ICP 1-NN on the card: the hand-written CUDA kernel in
 ``csrc/knn.cu`` (the counterpart of ``sc_lego_loam_tpu/ops/pallas_knn.py``).
 
 ``make_knn`` is what the engine calls.  It routes by the device of the
@@ -9,7 +9,8 @@ call raises.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library on
 first use, in ``_build/`` next to the package and keyed by a hash of the
-source, and loaded with ctypes.  ``launches`` counts kernel launches.
+source, and loaded with ctypes.  ``launches[k]`` counts the kernel launches
+of each instantiation (k=5: scan-to-map, k=1: ICP).
 """
 
 from __future__ import annotations
@@ -35,7 +36,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 KS = (1, 5)                   # the K the library instantiates
 
-launches = 0                  # kernel launches since the last reset
+launches = dict.fromkeys(KS, 0)   # kernel launches per k since the reset
+
+
+def reset_launches():
+    for k in KS:
+        launches[k] = 0
+
 
 _lib = None
 
@@ -131,7 +138,6 @@ def knn_prepared(query: torch.Tensor, prep: PreparedTargets, k: int,
     """Launch the kernel: query (Q,3) float32 on a CUDA device, ``qcnt``
     (1,) int32 on the same device (None: all Q rows live).
     Returns (idx (Q,k) int64, sqd (Q,k) float32)."""
-    global launches
     if k not in KS:
         raise ValueError(f"k={k}: the kernel is built for k in {KS}")
     dev = query.device
@@ -156,7 +162,7 @@ def knn_prepared(query: torch.Tensor, prep: PreparedTargets, k: int,
     if err != 0:
         raise RuntimeError("knn kernel launch failed: "
                            + _lib.knn_error_string(err).decode())
-    launches += 1
+    launches[k] += 1
     return idx, sqd
 
 

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from sc_lego_loam_tpu.config import CapacityConfig, FeatureConfig
+from ..config import CapacityConfig, FeatureConfig
 
 from .compact import compact_indices
 from .compaction import SegmentedCloud

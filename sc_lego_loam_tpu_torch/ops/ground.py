@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from sc_lego_loam_tpu.config import LidarConfig, SegmentationConfig
+from ..config import LidarConfig, SegmentationConfig
 
 from .projection import RangeImage
 

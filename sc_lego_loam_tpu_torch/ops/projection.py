@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from sc_lego_loam_tpu.config import LidarConfig
+from ..config import LidarConfig
 
 
 class RangeImage(NamedTuple):

@@ -1,16 +1,20 @@
-"""The SLAM engine, loop closure and IMU off (port of
-``sc_lego_loam_tpu/pipeline.py``).
+"""The SLAM engine, IMU off (port of ``sc_lego_loam_tpu/pipeline.py``).
 
-Two steps over device-resident state, as in the JAX package:
+Three steps over device-resident state, as in the JAX package:
 
   perception_step   every scan      frontend -> de-skew -> features ->
                                     odometry -> fused pose -> trajectory
   mapping_step      >= 0.3 s apart  submap -> scan-to-map LM -> correction
                                     -> guarded keyframe + descriptor insert
+  loop_step         every Nth tick  SC + radius detection -> ICP -> factor
+                                    -> pose-graph re-solve -> correctPoses
 
-The host only schedules (the mapping cadence is a wall-clock gate in the
-reference, utility.h:109) and never reads a device value inside
-``process_scan``; the trajectory is fetched once, by ``trajectory_array``.
+The host schedules (the mapping cadence is a wall-clock gate in the
+reference, utility.h:109; the loop cadence counts mapping ticks).
+``perception_step`` and ``mapping_step`` read no device value on the host;
+``loop_step`` reads a few flags (see ``loop.device_tick``) so that a tick
+without a candidate skips the ICP and one without an accepted factor skips
+the re-solve.  The trajectory is fetched once, by ``trajectory_array``.
 State updates are in place where a buffer is large (trajectory rings,
 keyframe and descriptor banks).
 """
@@ -23,9 +27,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sc_lego_loam_tpu.config import PipelineConfig
+from .config import PipelineConfig
 
-from . import frontend, mapping, odometry
+from . import frontend, loop, mapping, odometry, posegraph
 from .models import scan_context
 from .ops import features as features_op
 from .ops.compact import compact_indices
@@ -84,10 +88,12 @@ class MapperState(NamedTuple):
 
     kf: mapping.KeyframeStore
     bank: scan_context.DescriptorBank
+    loops: posegraph.LoopFactors
     correction: torch.Tensor   # (4,4) map-from-odom drift correction
     pose: torch.Tensor         # (4,4) latest mapped pose
     last_kf_pose: torch.Tensor  # (4,4) pose at last keyframe insertion
     last_kf_odom: torch.Tensor  # (4,4) odometry pose at last keyframe
+    loops_closed: torch.Tensor  # () int32 — loop ticks that closed
     kf_dropped: torch.Tensor   # () int32 — keyframes dropped at full bank
 
 
@@ -105,9 +111,11 @@ def init_mapper_state(config: PipelineConfig, device) -> MapperState:
     ms = mapping.init_state(config, device)
     return MapperState(
         kf=ms.kf, bank=scan_context.init_bank(config, device),
+        loops=posegraph.init_loops(config, device),
         correction=ms.correction, pose=ms.pose,
         last_kf_pose=ms.last_kf_pose,
         last_kf_odom=torch.eye(4, device=device),
+        loops_closed=torch.zeros((), dtype=torch.int32, device=device),
         kf_dropped=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -157,22 +165,40 @@ def mapping_step(config: PipelineConfig, mst: MapperState,
     desc = scan_context.make_descriptor(points, mask, cfg.sc)
     bank = scan_context.append(mst.bank, desc, cfg.cap.max_keyframes, should)
     return MapperState(
-        kf=kf, bank=bank, correction=correction, pose=pose,
+        kf=kf, bank=bank, loops=mst.loops, correction=correction, pose=pose,
         last_kf_pose=torch.where(inserted, pose, mst.last_kf_pose),
         last_kf_odom=torch.where(inserted, odom_pose, mst.last_kf_odom),
+        loops_closed=mst.loops_closed,
         kf_dropped=mst.kf_dropped + (should & ~inserted).to(torch.int32))
 
 
+def loop_step(config: PipelineConfig, mst: MapperState) -> MapperState:
+    """One loop-closure tick (loopClosureThread analog, mO.cpp:829-839):
+    SC + RS detection, ICP verification, factor insertion, pose-graph
+    re-solve and correctPoses (mO.cpp:1642-1664): a closed tick rewrites
+    pose, correction and last_kf_pose from the re-solved graph.  The big
+    keyframe cloud banks are only read."""
+    cur = torch.clamp(mst.kf.count.long() - 1, min=0).reshape(1)
+    kf, loops, closed = loop.device_tick(
+        config, mst.kf, mst.bank, mst.loops, mst.bank.desc[cur][0])
+    new_pose = se3.pose6_to_mat(kf.poses6[cur][0])
+    new_corr = new_pose @ se3.mat_inv(mst.last_kf_odom)
+    return mst._replace(
+        kf=kf, loops=loops,
+        correction=torch.where(closed, new_corr, mst.correction),
+        pose=torch.where(closed, new_pose, mst.pose),
+        last_kf_pose=torch.where(closed, new_pose, mst.last_kf_pose),
+        loops_closed=mst.loops_closed + closed.to(torch.int32))
+
+
 class SlamEngine:
-    """Single-sequence SLAM, loop closure and IMU off (BASELINE.json
-    config 1).  ``device`` is explicit (``"cuda"`` on the card, ``"cpu"``
-    for the plain versions of the kernels).  ``process_scan`` reads no
-    device value; ``trajectory_array()`` fetches the run once."""
+    """Single-sequence SLAM with or without loop closure, IMU off
+    (BASELINE.json configs 1-3).  ``device`` is explicit (``"cuda"`` on the
+    card, ``"cpu"`` for the plain versions of the kernels).
+    ``process_scan`` reads a device value only inside a loop tick;
+    ``trajectory_array()`` fetches the run once."""
 
     def __init__(self, config: PipelineConfig, device):
-        if config.loop.enabled:
-            raise NotImplementedError(
-                "loop closure is not ported yet: set loop.enabled=False")
         if config.imu.enabled:
             raise NotImplementedError(
                 "the IMU path is not ported yet: set imu.enabled=False")
@@ -185,8 +211,18 @@ class SlamEngine:
         self.m = init_mapper_state(config, self.device)
         self.last_map_time = -1e9
         self.map_ticks = 0
+        self.loop_ticks = 0
         self._scans_fed = 0
         self._warned_kf_cap = False
+        self._warned_loop_cap = False
+
+    @property
+    def loops(self) -> posegraph.LoopFactors:
+        return self.m.loops
+
+    @property
+    def loops_closed(self) -> torch.Tensor:
+        return self.m.loops_closed
 
     def process_scan(self, points, mask, t: float):
         """Feed one scan (padded (N,3) + mask, numpy or tensors).  Returns
@@ -216,7 +252,21 @@ class SlamEngine:
                 odo.surf_last.xyz, odo.surf_last.mask, out_pts, out_mask,
                 odom_pose, points, mask, t_dev)
             self.map_ticks += 1
-        # Host-side bound on the device counter: inserts <= mapping ticks.
+            # Loop-closure cadence: every Nth mapping tick (the reference's
+            # 1 Hz thread vs its ~3.3 Hz mapping = every ~3rd tick).
+            if cfg.loop.enabled and \
+                    self.map_ticks % cfg.loop.check_every_ticks == 0:
+                self.m = loop_step(cfg, self.m)
+                self.loop_ticks += 1
+        if not (self._warned_kf_cap and self._warned_loop_cap):
+            self._check_caps_host_bound()
+        return fused
+
+    def _check_caps_host_bound(self):
+        """Warn from the host-side tick counters alone, which bound the
+        device counters (keyframe inserts <= mapping ticks; loop factors
+        <= 2 per loop tick): no device read."""
+        cfg = self.config
         if not self._warned_kf_cap and \
                 self.map_ticks >= cfg.cap.max_keyframes:
             warnings.warn(
@@ -224,7 +274,31 @@ class SlamEngine:
                 "new keyframes past the cap are dropped; raise "
                 "CapacityConfig.max_keyframes", RuntimeWarning)
             self._warned_kf_cap = True
-        return fused
+        if not self._warned_loop_cap and \
+                2 * self.loop_ticks > cfg.posegraph.max_loops:
+            warnings.warn(
+                f"loop-factor bank may be full ({cfg.posegraph.max_loops}): "
+                "lowest-information factors are overwritten past the cap; "
+                "raise PoseGraphConfig.max_loops", RuntimeWarning)
+            self._warned_loop_cap = True
+
+    def _check_caps(self):
+        """Fetch the cap counters and warn exactly: keyframes
+        past the cap were dropped, loop factors past it overwrote the
+        highest-residual factor (posegraph.add_loop)."""
+        cfg = self.config
+        kf_dropped, loops_count = int(self.m.kf_dropped), \
+            int(self.m.loops.count)
+        if kf_dropped > 0:
+            warnings.warn(
+                f"keyframe bank full ({cfg.cap.max_keyframes}): "
+                f"{kf_dropped} keyframes dropped so far; raise "
+                "CapacityConfig.max_keyframes", RuntimeWarning)
+        if loops_count > cfg.posegraph.max_loops:
+            warnings.warn(
+                f"loop-factor bank full ({cfg.posegraph.max_loops}): "
+                "lowest-information loop factors are being overwritten; "
+                "raise PoseGraphConfig.max_loops", RuntimeWarning)
 
     def trajectory_array(self, retro_correct: bool = True):
         """(N,4,4) numpy trajectory so far (one fetch).  ``retro_correct``
@@ -232,6 +306,7 @@ class SlamEngine:
         X_k @ odom_k^-1 @ odom_i (the reference's exported key-pose path);
         ``False`` returns the as-published fused stream."""
         n = int(self.p.scan_i)
+        self._check_caps()
         fused = self.p.traj[:n].cpu().numpy()
         if not retro_correct or n == 0:
             return fused

@@ -3,10 +3,10 @@
 ``perception_state`` and ``mapper_state`` take the JAX engine's
 ``PerceptionState`` / ``MapperState`` with every leaf already a numpy array
 (``jax.tree.map(np.asarray, state)``: this module never sees jax) and
-return the port's state on ``device``.  Fields are matched by name, so the
-parts the port does not carry yet (the IMU buffer, the loop-factor bank
-and its counter) are dropped.  With it, one step of both packages can run
-from the same mid-run state.
+return the port's state on ``device``.  Fields are matched by name (the
+loop-factor bank and ``loops_closed`` come across with the rest), so the
+one part the port does not carry, the IMU buffer, is dropped.  With it, one
+step of both packages can run from the same mid-run state.
 """
 
 from __future__ import annotations

@@ -164,3 +164,61 @@ def pose6_to_mat(p):
 def mat_to_pose6(T):
     yaw, pitch, roll = mat_to_euler_zyx(T[..., :3, :3])
     return torch.cat([torch.stack([roll, pitch, yaw], -1), T[..., :3, 3]], -1)
+
+
+def det3(A):
+    """Closed-form determinant of (...,3,3) (``torch.linalg.det`` checks its
+    LU's status on the host, which synchronizes a CUDA stream)."""
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2]
+                            - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2]
+                              - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1]
+                              - A[..., 1, 1] * A[..., 2, 0]))
+
+
+def _kabsch_rotation(cov):
+    """Rotation R maximizing tr(R^T cov): U diag(1,1,det(U Vt)) Vt.
+    Returns (R, singular values, sign (3,)).  ``torch.linalg.svd`` reads
+    its status on the host: on a CUDA tensor each call synchronizes."""
+    U, D, Vt = torch.linalg.svd(cov)
+    det = det3(U) * det3(Vt)
+    one = torch.ones((), dtype=cov.dtype, device=cov.device)
+    sign = torch.stack([one, one, torch.where(det < 0, -one, one)])
+    return (U * sign[None, :]) @ Vt, D, sign
+
+
+def umeyama_alignment(src, dst, with_scale: bool = False):
+    """Least-squares similarity transform aligning src -> dst, both (N,3).
+    Returns (R, t, s) such that dst ~ s * R @ src + t."""
+    mu_s = src.mean(0)
+    mu_d = dst.mean(0)
+    xs = src - mu_s
+    xd = dst - mu_d
+    R, D, sign = _kabsch_rotation(xd.T @ xs / src.shape[0])
+    var_s = (xs ** 2).sum() / src.shape[0]
+    s = (D * sign).sum() / torch.clamp(var_s, min=_EPS) if with_scale \
+        else torch.ones((), dtype=src.dtype, device=src.device)
+    t = mu_d - s * R @ mu_s
+    return R, t, s
+
+
+def best_fit_transform(src, dst, weights=None):
+    """Weighted point-to-point rigid fit: finds T with dst ~ R src + t (the
+    SVD estimator inside ICP verification, mapOptmization.cpp:1012/1060).
+    src, dst: (N,3); weights: (N,) or None."""
+    if weights is None:
+        weights = torch.ones(src.shape[0], dtype=src.dtype, device=src.device)
+    wsum = torch.clamp(weights.sum(), min=_EPS)
+    mu_s = (weights[:, None] * src).sum(0) / wsum
+    mu_d = (weights[:, None] * dst).sum(0) / wsum
+    xs = src - mu_s
+    xd = dst - mu_d
+    R, _, _ = _kabsch_rotation((weights[:, None] * xd).T @ xs)
+    return rt_to_mat(R, mu_d - R @ mu_s)
+
+
+def rotation_angle(R):
+    """Geodesic angle of a rotation matrix (radians)."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))

@@ -42,10 +42,10 @@ def _cloud(seed, Q, Tn, valid, device):
 def test_kernel_matches_plain_on_card(card, k, Q, Tn, max_sq, valid, live):
     q, t, mask = _cloud(3, Q, Tn, valid, card)
     qcnt = torch.full((1,), live, dtype=torch.int32, device=card)
-    before = cuda_knn.launches
+    before = dict(cuda_knn.launches)
     idx, sqd = cuda_knn.make_knn(t, mask, k, max_sq)(q, qcnt)
     torch.cuda.synchronize()
-    assert cuda_knn.launches == before + 1
+    assert cuda_knn.launches == {**before, k: before[k] + 1}
     ri, rd = tknn.knn(q, t, mask, k + 1, max_sq, qcnt)
     # One FMA chain against three rounded adds: an ulp of d.
     torch.testing.assert_close(sqd, rd[:, :k], atol=1e-4, rtol=0)

@@ -113,7 +113,7 @@ def test_saturation_mask_qcnt_and_ties():
 
 def test_make_knn_routes_cpu_to_plain_version():
     q, t, mask = _cloud(2, 64, 512)
-    before = cuda_knn.launches
+    before = dict(cuda_knn.launches)
     fn = cuda_knn.make_knn(T(t), T(mask), 5, 4.0)
     qcnt = torch.full((1,), 40, dtype=torch.int32)
     idx, sqd = fn(T(q), qcnt)

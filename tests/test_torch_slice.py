@@ -1,4 +1,4 @@
-"""The port's slice as a whole against the JAX package, loop closure off:
+"""The port's first slice as a whole against the JAX package, loop closure off:
 one perception step and one mapping step from the same mid-run state
 (brought across by ``utils/convert.py``), both engines over the 10-scan
 straight fixture of tests/test_pipeline.py, and the port's independence
@@ -153,19 +153,41 @@ def test_engines_track_alike(runs):
 
 def test_engine_refuses_unported_paths():
     cfg = tiny_test_config()                 # loop closure on by default
-    with pytest.raises(NotImplementedError, match="loop"):
-        tp.SlamEngine(cfg, device="cpu")
+    tp.SlamEngine(cfg, device="cpu")         # ... and accepted
     with pytest.raises(NotImplementedError, match="IMU"):
-        tp.SlamEngine(_loop_off(cfg).replace(imu=ImuConfig(enabled=True)),
-                      device="cpu")
+        tp.SlamEngine(cfg.replace(imu=ImuConfig(enabled=True)), device="cpu")
+    two_stage = cfg.replace(odom=dataclasses.replace(cfg.odom,
+                                                     joint_6dof=False))
+    n = cfg.lidar.max_points
+    with pytest.raises(NotImplementedError, match="joint_6dof"):
+        tp.SlamEngine(two_stage, device="cpu").process_scan(
+            np.zeros((n, 3), np.float32), np.zeros(n, bool), t=0.0)
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, sc_lego_loam_tpu_torch.pipeline, "
-            "sc_lego_loam_tpu_torch.utils.convert, "
-            "sc_lego_loam_tpu_torch.utils.evaluate; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+    """In a fresh interpreter: import every module of the port, build the
+    engine with loop closure on and feed it a scan.  Neither jax nor the
+    JAX package (nor a submodule of either) gets imported."""
+    code = """
+import importlib, pkgutil, sys
+import numpy as np
+import sc_lego_loam_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 25, names
+from sc_lego_loam_tpu_torch.config import tiny_test_config
+from sc_lego_loam_tpu_torch.pipeline import SlamEngine
+cfg = tiny_test_config()
+assert cfg.loop.enabled
+engine = SlamEngine(cfg, device='cpu')
+n = cfg.lidar.max_points
+engine.process_scan(np.zeros((n, 3), np.float32), np.zeros(n, bool), t=0.0)
+bad = sorted(m for m in sys.modules
+             if m in ('jax', 'jaxlib', 'sc_lego_loam_tpu')
+             or m.startswith(('jax.', 'jaxlib.', 'sc_lego_loam_tpu.')))
+assert not bad, bad
+"""
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env)
