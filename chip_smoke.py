@@ -12,8 +12,12 @@ Phases, each printing its own lines:
    checkout and load it;
 4. kernel vs plain version: the kernel and ``ops/knn.py`` on the same
    tensors on the card, at the main paths' shapes (scan-to-map 5-NN, corner
-   and surf; ICP 1-NN), timed with CUDA events, beside the least time the
-   card could take for the same work;
+   and surf; ICP 1-NN), with the launch plan (splits S, R, U, blocks, device
+   kernels per call), timed on the device (CUDA events around a replayed
+   CUDA graph of 20 calls), beside the least time the card could take for
+   the same work and beside ``torch.cdist`` + ``topk`` (not the same
+   function); then the tie rule across splits and tiles and the smallest
+   target counts (0, 1, fewer than S);
 5. slice: ``SlamEngine(cfg, device="cuda")`` with loop closure off over the
    first scans of the drive;
 6. loop path: ``SlamEngine(default_config(), device="cuda")``, loop closure
@@ -24,7 +28,12 @@ Phases, each printing its own lines:
 7. loop tick breakdown: the parts of one loop tick (retrieval, radius
    detection, history submap, keyframe cloud, ICP, one verification, the
    re-solve) on the loop path's end state, each with its synchronized
-   time, its kernel launches and its host syncs.
+   time, its kernel launches and its host syncs;
+8. real clouds: the kernel against the plain version, timed as in 4, on
+   the loop path's own clouds: k=5 on the submap the last keyframe was
+   matched against, queried with that keyframe's downsampled corner and
+   surf features at its pose; k=1 on phase 7's keyframe cloud and history
+   submap.
 
 ``--drive cloverleaf`` swaps the figure-8 for the bench's loop precision /
 recall drive (520 scans, four petals through one centre, three revisit
@@ -50,11 +59,14 @@ from collections import Counter
 import numpy as np
 import torch
 
-from sc_lego_loam_tpu_torch import loop, pipeline, posegraph
+from sc_lego_loam_tpu_torch import loop, mapping, pipeline, posegraph
 from sc_lego_loam_tpu_torch.config import default_config
 from sc_lego_loam_tpu_torch.models import scan_context
 from sc_lego_loam_tpu_torch.ops import cuda_knn, icp, knn as plain_knn
+from sc_lego_loam_tpu_torch.ops.compact import compact
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
+from sc_lego_loam_tpu_torch.tools.knn_tune import (graph_ms, ptxas_lines,
+                                                   uniform_cloud)
 from sc_lego_loam_tpu_torch.utils import evaluate, se3, synthetic
 
 KNN_SOURCE = "sc_lego_loam_tpu_torch/csrc/knn.cu"
@@ -70,6 +82,7 @@ SHAPES = [
 ]
 TIE_REL = 1e-5        # slots this close to a neighbour's distance are ties
 SQD_ATOL = 1e-4
+GRAPH_CALLS = 20      # kernel calls captured in the graph that is timed
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): fp32 outside the
 # tensor cores, and device memory.
@@ -123,23 +136,17 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(name, k, Q, T, max_sq, seed, card):
-    """Kernel against the plain version on one shape, ~50 % valid targets
-    and 90 % live queries.  Indices must agree in every slot whose distance
-    is not tied (within TIE_REL) with a neighbouring slot's."""
-    rng = np.random.default_rng(seed)
-    box = np.array([20.0, 20.0, 2.0], np.float32)
-    q = torch.from_numpy(rng.uniform(-box, box, (Q, 3)).astype(np.float32))
-    t = torch.from_numpy(rng.uniform(-box, box, (T, 3)).astype(np.float32))
-    mask = torch.from_numpy(rng.random(T) < 0.5)
-    q, t, mask = q.cuda(), t.cuda(), mask.cuda()
-    qcnt = torch.full((1,), int(0.9 * Q), dtype=torch.int32, device="cuda")
-
+def kernel_vs_plain(name, k, q, t, mask, qcnt, max_sq, card):
+    """Kernel against the plain version on one set of tensors on the card.
+    Indices must agree in every slot whose distance is not tied (within
+    TIE_REL) with a neighbouring slot's."""
+    Q, T = q.shape[0], t.shape[0]
     prep = cuda_knn.prepare_targets(t, mask)
-    idx, sqd = cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt)
+    plan, cfg = cuda_knn.plan(k, Q, T, q.device), cuda_knn.kernel_config(k)
+    idx_t, sqd_t = cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt)
     ref_idx, ref_sqd = plain_knn.knn(q, t, mask, k + 1, max_sq, qcnt)
     torch.cuda.synchronize()
-    idx, sqd = idx.cpu().numpy(), sqd.cpu().numpy()
+    idx, sqd = idx_t.cpu().numpy(), sqd_t.cpu().numpy()
     ref_idx, ref_sqd = ref_idx.cpu().numpy(), ref_sqd.cpu().numpy()
 
     err = float(np.abs(sqd - ref_sqd[:, :k]).max())
@@ -158,38 +165,109 @@ def kernel_vs_plain(name, k, Q, T, max_sq, seed, card):
     dead_ok = bool((idx[live:] == 0).all() and (sqd[live:] == max_sq).all())
 
     # The least time the card could take for this call: the live pairs'
-    # arithmetic at the fp32 peak, or every input read once (queries,
-    # compacted targets, the slot -> index map, the two counts) and every
-    # output written once (int64 index and fp32 distance per slot).
+    # arithmetic at the fp32 peak, or every input read once (queries, the
+    # 16-byte target records, the slot -> index map, the two counts) and
+    # every output written once (int64 index and fp32 distance per slot).
     pairs = live * tcnt
-    moved = Q * 12 + T * 12 + T * 8 + 8 + Q * k * 12
+    moved = Q * 12 + T * 16 + T * 8 + 8 + Q * k * 12
     ops_ms = 1e3 * pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS
     bytes_ms = 1e3 * moved / PEAK_BYTES_PER_S
     bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
 
     kern = lambda: cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt)  # noqa: E731
     plain = lambda: plain_knn.knn(q, t, mask, k, max_sq, qcnt)     # noqa: E731
+    # torch.cdist + topk on the live queries and the compacted targets: no
+    # range gate, no tie rule, distances by the norm expansion.  A yardstick
+    # only; the port never calls it.
+    ql, tl = q[:live], prep.tgt[:tcnt, :3].contiguous()
+    cdist = lambda: torch.cdist(ql, tl).topk(min(k, tcnt), largest=False)  # noqa: E731
     p1 = time_ms(plain, 3)
-    k1 = time_ms(kern, 10)
-    k2 = time_ms(kern, 10)
+    ms = graph_ms(kern, GRAPH_CALLS)
+    eager_ms = time_ms(kern, GRAPH_CALLS)
+    cdist_ms = time_ms(cdist, 3) if live and tcnt else float("nan")
     p2 = time_ms(plain, 3)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    plain_ms = (p1 + p2) / 2
     print(f"kernel {name}: k={k} Q={Q} T={T} valid_targets={tcnt} "
           f"qcnt={live} max_sq_dist={max_sq} "
+          f"splits={plan.splits} R={cfg.R} U={cfg.U} threads={cfg.threads} "
+          f"queue={cfg.queue} tile={cfg.tile} stages={cfg.stages} "
+          f"blocks={plan.blocks} device_kernels_per_call={plan.kernels} "
           f"compared_slots={int(compared.sum())}/{compared.size} "
           f"idx_mismatch={mismatch} max_abs_err={err:.3e} "
           f"(atol {SQD_ATOL}) rows>=qcnt_empty={dead_ok} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} live_pairs={pairs} "
+          f"ms={ms:.4f} (device, graph of {GRAPH_CALLS} calls) "
+          f"eager_call_ms={eager_ms:.4f} (back to back, host included) "
+          f"plain_ms={plain_ms:.4f} live_pairs={pairs} "
           f"bytes_moved={moved} bound_ms={bound_ms:.5f} "
           f"(operations {ops_ms:.5f}, bytes {bytes_ms:.5f}) "
           f"bound_share={bound_ms / ms:.4f} library_ms=none "
           f"(no single PyTorch call computes a masked, range-gated exact "
-          f"top-k of pair distances) [{card}]", flush=True)
+          f"top-k of pair distances) cdist_topk_ms={cdist_ms:.4f} "
+          f"(torch.cdist + topk: NOT the same function, never called by the "
+          f"port) [{card}]", flush=True)
     check(mismatch == 0, f"{name}: {mismatch} index mismatches")
     check(err <= SQD_ATOL, f"{name}: sqd error {err} > {SQD_ATOL}")
     check(dead_ok, f"{name}: rows past qcnt are not empty")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def tie_and_small_count_checks(card):
+    """The tie rule across split and tile boundaries, and target counts of
+    0, 1 and fewer than S, each against the plain version and against the
+    plain two-stage reference (``ops/knn.split_merge``)."""
+    rng = np.random.default_rng(5)
+    for k in (5, 1):
+        cfg = cuda_knn.kernel_config(k)
+        Q, T, S = 300, 9 * cfg.tile + 77, 3
+        # One point, far from all others, copied into original indices
+        # whose compacted slots fall into all three splits and into
+        # different tiles of one split; every third target is invalid, so
+        # slots and indices differ.
+        t = rng.uniform(-20, 20, (T, 3)).astype(np.float32)
+        mask = np.arange(T) % 3 != 1
+        point = np.array([100.0, 100.0, 100.0], np.float32)
+        slots_to_index = np.nonzero(mask)[0]
+        tcnt = len(slots_to_index)
+        length = -(-tcnt // S)
+        dup_slots = [3, cfg.tile + 5, length - 1, length, length + cfg.tile,
+                     2 * length + 1, tcnt - 1]
+        dup_index = slots_to_index[dup_slots]
+        t[dup_index] = point
+        q = point + rng.normal(0, 0.1, (Q, 3)).astype(np.float32)
+        q, t, mask = (torch.from_numpy(x).cuda() for x in (q, t, mask))
+        prep = cuda_knn.prepare_targets(t, mask)
+        idx, sqd = cuda_knn.knn_prepared(q, prep, k, 4.0, splits=S)
+        pidx, psqd = plain_knn.knn(q, t, mask, k, 4.0)
+        sidx, ssqd = plain_knn.split_merge(q, t, mask, k, 4.0, S)
+        torch.cuda.synchronize()
+        want = torch.from_numpy(dup_index[:k]).cuda().expand(Q, k)
+        ok = bool(torch.equal(idx, want) and torch.equal(pidx, want)
+                  and torch.equal(sidx, want)
+                  and (sqd - psqd).abs().max() <= SQD_ATOL
+                  and torch.equal(psqd, ssqd))
+        print(f"ties k={k}: one point at compacted slots {dup_slots} of "
+              f"{tcnt} (S={S} splits of {length}, tiles of {cfg.tile}): "
+              f"kernel, plain and split_merge return the lower slots first "
+              f"= {ok} [{card}]", flush=True)
+        check(ok, f"k={k}: duplicates across splits and tiles come back in "
+              f"another order than the plain version's")
+
+        for count in (0, 1, 3):
+            small = torch.zeros(T, dtype=torch.bool, device="cuda")
+            small[torch.from_numpy(dup_index[:count]).cuda()] = True
+            prep = cuda_knn.prepare_targets(t, small)
+            pidx, psqd = plain_knn.knn(q, t, small, k, 4.0)
+            same = True
+            for splits in (None, 8):
+                idx, sqd = cuda_knn.knn_prepared(q, prep, k, 4.0,
+                                                 splits=splits)
+                torch.cuda.synchronize()
+                same &= bool(torch.equal(idx, pidx)
+                             and (sqd - psqd).abs().max() <= SQD_ATOL)
+            print(f"small count k={k}: {count} valid targets, planned S and "
+                  f"S=8: kernel equals plain = {same} [{card}]", flush=True)
+            check(same, f"k={k}: {count} valid targets differ from plain")
 
 
 def small_linalg_times(card):
@@ -435,6 +513,40 @@ def run_loop_path(pts, msk, gt, card):
     return launches, engine
 
 
+def real_cloud_checks(engine, clouds, card):
+    """Kernel against plain version, and its time, on the loop path's own
+    clouds (clustered along surfaces, not uniform).  k=5: the submap as the
+    last keyframe's mapping tick saw it, queried with that keyframe's
+    stored (downsampled) corner and surf + outlier features at its pose,
+    compacted as ``mapping.scan_to_map`` compacts them.  k=1: ``clouds``,
+    the keyframe cloud and history submap of the loop tick breakdown,
+    compacted as ``icp.align`` compacts them."""
+    cfg, kf = engine.config, engine.m.kf
+    m = cfg.mapping
+    last = (kf.count.long() - 1).reshape(1)
+    sub_c, sub_cm, sub_s, sub_sm = mapping.build_submap(
+        cfg, kf._replace(count=kf.count - 1))
+    pose = se3.pose6_to_mat(kf.poses6[last][0])
+    corner, corner_m = kf.corner[last][0], kf.corner_mask[last][0]
+    surf = torch.cat([kf.surf[last][0], kf.outlier[last][0]])
+    surf_m = torch.cat([kf.surf_mask[last][0], kf.outlier_mask[last][0]])
+    src, src_mask, dst, dst_mask = clouds
+    results = {}
+    for name, k, q, qm, t, tm, max_sq in (
+            ("real_s2m_surf_k5", m.knn, se3.transform_points(pose, surf),
+             surf_m, sub_s, sub_sm, 4.0 * m.max_nn_sq_dist),
+            ("real_s2m_corner_k5", m.knn, se3.transform_points(pose, corner),
+             corner_m, sub_c, sub_cm, 4.0 * m.max_nn_sq_dist),
+            ("real_icp_k1", 1, src, src_mask, dst, dst_mask,
+             icp.NN_MAX_SQ_DIST)):
+        q, qm = compact(q, qm, q.shape[0])
+        qcnt = qm.sum(dtype=torch.int32).reshape(1)
+        results[name] = kernel_vs_plain(name, k, q.contiguous(),
+                                        t.contiguous(), tm, qcnt, max_sq,
+                                        card)
+    return results
+
+
 def loop_tick_breakdown(engine, card):
     """Where a loop tick's time goes, on the loop path's end state and for
     its first accepted factor (newer keyframe i against older j, the Scan
@@ -498,6 +610,7 @@ def loop_tick_breakdown(engine, card):
               f"kernel_launches={n_kernels} device_ms={dev_ms:.3f} "
               f"host_syncs={len(sync_warnings(rec))} [{card}]", flush=True)
         check(n_kernels > 0, f"the profiler saw no kernel in: {name}")
+    return src, src_mask, dst, dst_mask
 
 
 def check_no_jax():
@@ -526,12 +639,19 @@ def main():
 
     info = cuda_knn.build()
     print(f"build: {info.path} in {info.seconds:.2f} s [{card}]", flush=True)
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    kernels_built = ptxas_lines(info.log)
+    for name, regs, stores, loads in kernels_built:
+        print(f"  ptxas: {name}: {regs} registers, spill stores {stores} "
+              f"bytes, spill loads {loads} bytes", flush=True)
+        check(stores == 0 and loads == 0, f"{name} spills registers")
+    check(bool(kernels_built) or info.seconds == 0.0,
+          "nvcc printed no ptxas report")
 
-    results = [kernel_vs_plain(name, k, Q, T, max_sq, seed, card)
+    # ~50 % valid targets and 90 % live queries, uniform in a 40x40x4 m box.
+    results = [kernel_vs_plain(name, k, *uniform_cloud(seed, Q, T), max_sq,
+                               card)
                for seed, (name, k, Q, T, max_sq) in enumerate(SHAPES)]
+    tie_and_small_count_checks(card)
     small_linalg_times(card)
 
     pts = torch.from_numpy(scans).cuda()
@@ -540,7 +660,9 @@ def main():
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s before the loop "
           f"path", flush=True)
     loop_launches, engine = run_loop_path(pts, msk, gt, card)
-    loop_tick_breakdown(engine, card)
+    clouds = loop_tick_breakdown(engine, card)
+    # After the paths' launch counts were read: these calls do not count.
+    real_cloud_checks(engine, clouds, card)
     check_no_jax()
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

@@ -9,8 +9,13 @@ call raises.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library on
 first use, in ``_build/`` next to the package and keyed by a hash of the
-source, and loaded with ctypes.  ``launches[k]`` counts the kernel launches
-of each instantiation (k=5: scan-to-map, k=1: ICP).
+source, and loaded with ctypes.  One call is two device kernels on the
+current stream: ``knn_partial`` on a grid of query tiles x target splits,
+and ``knn_merge``, which merges the splits' partial lists exactly.  The
+number of splits S is chosen here from the static shapes (``plan``); the
+outputs and the (S,k,Q) scratch are allocated here, nothing in the C call.
+``launches[k]`` counts the calls of each instantiation (k=5: scan-to-map,
+k=1: ICP).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -36,7 +42,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 KS = (1, 5)                   # the K the library instantiates
 
-launches = dict.fromkeys(KS, 0)   # kernel launches per k since the reset
+KERNELS_PER_CALL = 2          # knn_partial + knn_merge
+# How many warps per SM the grid of knn_partial should offer before the
+# targets are split no further, and the fewest targets a split is worth
+# (measured on the card by tools/knn_tune.py).
+WARPS_PER_SM = {1: 11, 5: 64}
+MIN_SPLIT_TARGETS = 256
+
+launches = dict.fromkeys(KS, 0)   # calls of knn_prepared per k since the reset
 
 
 def reset_launches():
@@ -68,14 +81,26 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> BuildInfo:
-    """Compile ``csrc/knn.cu`` (once per source hash) and load it."""
-    global _lib, _build_info
-    if _build_info is not None:
-        return _build_info
+class KernelConfig(NamedTuple):
+    """What one instantiation of ``knn_partial`` was compiled with."""
+
+    R: int                    # queries per thread
+    U: int                    # targets per guarded batch
+    threads: int              # threads per block
+    min_blocks: int           # blocks per SM asked of ptxas
+    tile: int                 # targets per shared-memory tile
+    stages: int               # tiles in the ring
+    queue: int                # batches a lane can note (0: insert in place)
+
+
+def compile_library(defines: tuple[str, ...] = ()) -> BuildInfo:
+    """``nvcc`` the source into ``_build/`` (once per hash of source, flags
+    and ``defines``, e.g. ``("-DKNN_K5_R=2",)``); raises with the
+    compiler's output when it fails."""
+    flags = [*NVCC_FLAGS, *defines]
     with open(SOURCE, "rb") as f:
         src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"libknn_{tag}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(out):
@@ -83,7 +108,7 @@ def build() -> BuildInfo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, SOURCE],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
@@ -91,23 +116,88 @@ def build() -> BuildInfo:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
         os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
+    return BuildInfo(out, seconds, log)
+
+
+def load_library(path: str):
+    """The library's C interface, and what each k was compiled with."""
+    lib = ctypes.CDLL(path)
     lib.knn_launch.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float] + [ctypes.c_void_p] * 5
     lib.knn_launch.restype = ctypes.c_int
+    lib.knn_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.knn_config.restype = ctypes.c_int
     lib.knn_error_string.argtypes = [ctypes.c_int]
     lib.knn_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    _build_info = BuildInfo(out, seconds, log)
+    configs = {}
+    for k in KS:
+        out = (ctypes.c_int * len(KernelConfig._fields))()
+        if lib.knn_config(k, out) != 0:
+            raise RuntimeError(f"{path} has no instantiation for k={k}")
+        configs[k] = KernelConfig(*out)
+    return lib, configs
+
+
+_configs: dict[int, KernelConfig] = {}
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/knn.cu`` (once per source hash) and load it."""
+    global _lib, _build_info
+    if _build_info is None:
+        info = compile_library()
+        _lib, configs = load_library(info.path)
+        _configs.update(configs)
+        _build_info = info
     return _build_info
+
+
+class Plan(NamedTuple):
+    """The launch of one call, from static shapes alone."""
+
+    splits: int               # S: contiguous ranges of compacted targets
+    query_tiles: int          # blocks along the query axis
+    blocks: int               # query_tiles * splits
+    kernels: int              # device kernels per call
+
+
+def choose_splits(Q: int, T: int, cfg: KernelConfig, sm_count: int,
+                  warps_per_sm: int) -> Plan:
+    """S such that the grid offers ``warps_per_sm`` warps to every SM, but
+    no split shorter than ``MIN_SPLIT_TARGETS`` of the pad.  The kernel
+    cuts the *valid* targets into S ranges, so every split has work."""
+    tiles = -(-Q // (cfg.threads * cfg.R))
+    want = -(-sm_count * warps_per_sm // (cfg.threads // 32))
+    S = min(-(-want // max(tiles, 1)), T // MIN_SPLIT_TARGETS)
+    S = max(1, min(S, 65535))
+    return Plan(S, tiles, tiles * S, KERNELS_PER_CALL)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan(k: int, Q: int, T: int, device) -> Plan:
+    """The plan ``knn_prepared`` uses for this shape on this card."""
+    build()
+    device = torch.device(device)
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    return choose_splits(Q, T, _configs[k], _sm_count(index), WARPS_PER_SM[k])
+
+
+def kernel_config(k: int) -> KernelConfig:
+    build()
+    return _configs[k]
 
 
 class PreparedTargets(NamedTuple):
     """Loop-invariant target side: prefix-compacted targets, the valid
     count and the compacted-slot -> original-index map."""
 
-    tgt: torch.Tensor    # (T,3) float32, valid targets first
+    tgt: torch.Tensor    # (T,4) float32 records (x,y,z,0), valid first
     cnt: torch.Tensor    # (1,) int32 number of valid targets
     perm: torch.Tensor   # (T,) int64 compacted slot -> original index
 
@@ -117,7 +207,8 @@ def prepare_targets(target: torch.Tensor,
     """Prefix-compact the targets on the device (hoisted out of LM loops)."""
     T = target.shape[0]
     perm, ok = compact_indices(target_mask, T)
-    tgt = torch.where(ok[:, None], target[perm], 0.0).contiguous()
+    tgt = torch.zeros((T, 4), dtype=target.dtype, device=target.device)
+    tgt[:, :3] = torch.where(ok[:, None], target[perm], 0.0)
     return PreparedTargets(tgt=tgt, cnt=ok.sum(dtype=torch.int32).reshape(1),
                            perm=perm)
 
@@ -133,11 +224,35 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
+def launch_with(lib, query: torch.Tensor, prep: PreparedTargets, k: int,
+                max_sq_dist: float, qcnt: torch.Tensor, splits: int):
+    """The C call on checked tensors: allocate the outputs and the scratch,
+    put both kernels on the current stream, raise if a launch is refused."""
+    dev = query.device
+    Q, T, S = query.shape[0], prep.tgt.shape[0], splits
+    idx = torch.empty((Q, k), dtype=torch.int64, device=dev)
+    sqd = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    part_d = torch.empty((S, k, Q), dtype=torch.float32, device=dev)
+    part_i = torch.empty((S, k, Q), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.knn_launch(query.data_ptr(), prep.tgt.data_ptr(),
+                         prep.perm.data_ptr(), prep.cnt.data_ptr(),
+                         qcnt.data_ptr(), Q, T, k, S, float(max_sq_dist),
+                         part_d.data_ptr(), part_i.data_ptr(),
+                         idx.data_ptr(), sqd.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("knn kernel launch failed: "
+                           + lib.knn_error_string(err).decode())
+    return idx, sqd
+
+
 def knn_prepared(query: torch.Tensor, prep: PreparedTargets, k: int,
-                 max_sq_dist: float, qcnt: torch.Tensor | None = None):
+                 max_sq_dist: float, qcnt: torch.Tensor | None = None,
+                 splits: int | None = None):
     """Launch the kernel: query (Q,3) float32 on a CUDA device, ``qcnt``
     (1,) int32 on the same device (None: all Q rows live).
-    Returns (idx (Q,k) int64, sqd (Q,k) float32)."""
+    Returns (idx (Q,k) int64, sqd (Q,k) float32).  ``splits`` overrides the
+    planned S (tests and tuning)."""
     if k not in KS:
         raise ValueError(f"k={k}: the kernel is built for k in {KS}")
     dev = query.device
@@ -147,23 +262,17 @@ def knn_prepared(query: torch.Tensor, prep: PreparedTargets, k: int,
     if qcnt is None:
         qcnt = torch.full((1,), Q, dtype=torch.int32, device=dev)
     _check("query", query, torch.float32, (Q, 3), dev)
-    _check("targets", prep.tgt, torch.float32, (T, 3), dev)
+    _check("targets", prep.tgt, torch.float32, (T, 4), dev)
     _check("target count", prep.cnt, torch.int32, (1,), dev)
     _check("perm", prep.perm, torch.int64, (T,), dev)
     _check("qcnt", qcnt, torch.int32, (1,), dev)
     build()
-    idx = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    sqd = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.knn_launch(query.data_ptr(), prep.tgt.data_ptr(),
-                          prep.perm.data_ptr(), prep.cnt.data_ptr(),
-                          qcnt.data_ptr(), Q, k, float(max_sq_dist),
-                          idx.data_ptr(), sqd.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("knn kernel launch failed: "
-                           + _lib.knn_error_string(err).decode())
+    S = plan(k, Q, T, dev).splits if splits is None else int(splits)
+    if not 1 <= S <= 65535:
+        raise ValueError(f"splits={S}: the grid takes 1..65535")
+    out = launch_with(_lib, query, prep, k, max_sq_dist, qcnt, S)
     launches[k] += 1
-    return idx, sqd
+    return out
 
 
 def make_knn(target: torch.Tensor, target_mask: torch.Tensor, k: int,

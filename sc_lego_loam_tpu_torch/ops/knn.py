@@ -57,3 +57,36 @@ def knn(query: torch.Tensor, target: torch.Tensor, target_mask: torch.Tensor,
         idx_out.append(idx)
         sqd_out.append(sqd)
     return torch.cat(idx_out), torch.cat(sqd_out)
+
+
+def split_merge(query: torch.Tensor, target: torch.Tensor,
+                target_mask: torch.Tensor, k: int, max_sq_dist: float,
+                splits: int, qcnt: torch.Tensor | None = None):
+    """The CUDA kernel's two stages in plain torch, for tests and
+    ``chip_smoke.py`` only: the valid targets, in index order, are cut into
+    ``splits`` contiguous ranges of ``ceil(count / splits)`` slots; each
+    range gives a partial top-k (``knn`` on that range alone); the partial
+    lists are merged lexicographically by (distance, slot).  Equal to
+    ``knn`` in every slot, bit for bit.  Reads the valid count on the host.
+    """
+    Q, dev = query.shape[0], query.device
+    slots = torch.nonzero(target_mask)[:, 0]          # slot -> original index
+    count = slots.shape[0]
+    length = -(-count // splits)
+    keys = [torch.full((Q, k), _NO_KEY, dtype=torch.int64, device=dev)]
+    dist = [torch.full((Q, k), max_sq_dist, dtype=torch.float32, device=dev)]
+    for begin in range(0, count, max(length, 1)):
+        part = target[slots[begin:begin + length]]
+        idx, sqd = knn(query, part, torch.ones_like(part[:, 0], dtype=torch.bool),
+                       k, max_sq_dist, qcnt)
+        found = sqd < max_sq_dist                     # an empty slot reads max
+        bits = sqd.contiguous().view(torch.int32).to(torch.int64)
+        keys.append(torch.where(found, (bits << 32) | (begin + idx), _NO_KEY))
+        dist.append(sqd)
+    keys, dist = torch.cat(keys, 1), torch.cat(dist, 1)
+    best, at = torch.topk(keys, k, dim=1, largest=False, sorted=True)
+    found = best != _NO_KEY
+    slot = torch.where(found, best & 0xFFFFFFFF, 0)
+    idx = torch.where(found, slots[slot] if count else slot, 0)
+    sqd = torch.where(found, torch.gather(dist, 1, at), max_sq_dist)
+    return idx, sqd

@@ -46,6 +46,10 @@ def test_kernel_matches_plain_on_card(card, k, Q, Tn, max_sq, valid, live):
     idx, sqd = cuda_knn.make_knn(t, mask, k, max_sq)(q, qcnt)
     torch.cuda.synchronize()
     assert cuda_knn.launches == {**before, k: before[k] + 1}
+    _assert_matches_plain(idx, sqd, q, t, mask, k, max_sq, qcnt, live)
+
+
+def _assert_matches_plain(idx, sqd, q, t, mask, k, max_sq, qcnt, live):
     ri, rd = tknn.knn(q, t, mask, k + 1, max_sq, qcnt)
     # One FMA chain against three rounded adds: an ulp of d.
     torch.testing.assert_close(sqd, rd[:, :k], atol=1e-4, rtol=0)
@@ -57,6 +61,80 @@ def test_kernel_matches_plain_on_card(card, k, Q, Tn, max_sq, valid, live):
     tied[:, 1:] |= tied_next[:, :-1]
     assert torch.equal(idx[~tied], ri[:, :k][~tied])
     assert (idx[live:] == 0).all() and (sqd[live:] == max_sq).all()
+
+
+@pytest.mark.parametrize("k,Q,Tn,max_sq,valid,live,splits", [
+    (5, 1024, 8192, 4.0, 0.5, 924, 3),     # Tn/2 not a multiple of S
+    (5, 1024, 8192, 4.0, 0.5, 924, 7),     # nor of the tile
+    (1, 1024, 8192, 64.0, 0.5, 924, 5),
+    (5, 600, 4099, 4.0, 0.9, 600, 16),     # Q no multiple of a block's rows
+    (5, 512, 4096, 1e6, 0.001, 512, 16),   # fewer valid targets than S
+    (1, 512, 4096, 64.0, 0.001, 512, 64),
+    (5, 512, 4096, 4.0, 0.5, 37, 4),       # live < one tile, odd
+    (1, 512, 4096, 64.0, 0.5, 3, None),
+    (5, 12288, 65536, 4.0, 0.5, 11059, None),   # scan-to-map surf
+    (5, 2048, 16384, 4.0, 0.5, 1843, None),     # scan-to-map corner
+    (1, 8192, 32768, 64.0, 0.5, 7372, None),    # ICP
+])
+def test_splits_and_merge_on_card(card, k, Q, Tn, max_sq, valid, live,
+                                  splits):
+    """The target split and the merge: forced S (None: the planned one)
+    against the plain version, and every S against S=1, bit for bit."""
+    q, t, mask = _cloud(7, Q, Tn, valid, card)
+    qcnt = torch.full((1,), live, dtype=torch.int32, device=card)
+    prep = cuda_knn.prepare_targets(t, mask)
+    idx, sqd = cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt, splits=splits)
+    one_i, one_d = cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt, splits=1)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, one_i) and torch.equal(sqd, one_d)
+    _assert_matches_plain(idx, sqd, q, t, mask, k, max_sq, qcnt, live)
+    if Q <= 1024:
+        si, sd = tknn.split_merge(q, t, mask, k, max_sq, splits or 4, qcnt)
+        torch.testing.assert_close(sqd, sd, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_duplicates_across_splits_come_back_lower_slot_first(card, k):
+    """One point copied into slots of different splits and tiles: all at
+    one distance, so the order is the tie rule's alone."""
+    tile = cuda_knn.kernel_config(k).tile
+    Tn, S = 9 * tile + 77, 3
+    rng = np.random.default_rng(11)
+    t = rng.uniform(-20, 20, (Tn, 3)).astype(np.float32)
+    mask = np.arange(Tn) % 3 != 1
+    index_of = np.nonzero(mask)[0]
+    length = -(-len(index_of) // S)
+    slots = [3, tile + 5, length - 1, length, length + tile, 2 * length + 1,
+             len(index_of) - 1]
+    t[index_of[slots]] = [100.0, 100.0, 100.0]
+    q = (100.0 + rng.normal(0, 0.1, (200, 3))).astype(np.float32)
+    q, t, mask = (torch.from_numpy(x).to(card) for x in (q, t, mask))
+    want = torch.from_numpy(index_of[slots][:k]).to(card).expand(200, k)
+    for splits in (S, None, 1, 64):
+        idx, _ = cuda_knn.knn_prepared(
+            q, cuda_knn.prepare_targets(t, mask), k, 4.0, splits=splits)
+        assert torch.equal(idx, want), splits
+    assert torch.equal(tknn.knn(q, t, mask, k, 4.0)[0], want)
+
+
+def test_a_call_is_capturable_in_a_cuda_graph(card):
+    """Static grid, no host read, nothing allocated in the C call."""
+    q, t, mask = _cloud(9, 1024, 8192, 0.5, card)
+    qcnt = torch.full((1,), 900, dtype=torch.int32, device=card)
+    prep = cuda_knn.prepare_targets(t, mask)
+    want = cuda_knn.knn_prepared(q, prep, 5, 4.0, qcnt)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cuda_knn.knn_prepared(q, prep, 5, 4.0, qcnt)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # The counts are read on the device at replay: fewer live rows, same graph.
+    qcnt.fill_(10)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (got[0][10:] == 0).all() and torch.equal(got[0][:10], want[0][:10])
 
 
 def test_equal_distances_go_to_the_lower_index(card):
@@ -81,3 +159,5 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="qcnt is on cpu"):
         cuda_knn.knn_prepared(q, prep, 5, 4.0,
                               torch.full((1,), 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="splits=0"):
+        cuda_knn.knn_prepared(q, prep, 5, 4.0, splits=0)

@@ -127,3 +127,75 @@ def test_make_knn_routes_cpu_to_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_knn.knn_prepared(T(q), prep, 5, 4.0)
 
+
+
+def _cloud_with_copies(seed, Q, Tn, valid):
+    """A cloud whose second half repeats its first half, so that every
+    target has an equal-distance twin many slots away."""
+    q, t, mask = _cloud(seed, Q, Tn, valid, scale=2.0)
+    t[Tn // 2:] = t[:Tn - Tn // 2]
+    return q, t, mask
+
+
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("splits", [1, 3, 16])
+@pytest.mark.parametrize("case,Tn,valid,max_sq", [
+    ("copies across every range boundary", 2048, 0.7, 4.0),
+    ("fewer valid targets than ranges", 12, 0.6, 1e6),
+    ("fewer than k targets in range", 512, 0.9, 0.05),
+    ("no valid target", 64, 0.0, 4.0),
+])
+def test_split_merge_equals_plain(k, splits, case, Tn, valid, max_sq):
+    """The kernel's two stages in plain torch (partial top-k per contiguous
+    range of valid targets, lexicographic merge by (distance, slot)) give
+    the plain version's indices and distances, bit for bit."""
+    q, t, mask = _cloud_with_copies(len(case), 200, Tn, valid)
+    qcnt = torch.full((1,), 170, dtype=torch.int32)
+    want_i, want_d = tknn.knn(T(q), T(t), T(mask), k, max_sq, qcnt)
+    got_i, got_d = tknn.split_merge(T(q), T(t), T(mask), k, max_sq, splits,
+                                    qcnt)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d), case
+    if case.startswith("copies"):
+        # Ties really occur: some query has two slots at one distance.
+        assert (want_d[:170, 1:] == want_d[:170, :-1]).any() or k == 1
+    if case.startswith("fewer than k"):
+        assert (want_d[:170, -1] == max_sq).any()
+
+
+def test_prepare_targets_emits_padded_records():
+    """The kernel reads 16-byte records: the compacted (T,3) layout of
+    before, a zero in the fourth column, the same count and slot map."""
+    q, t, mask = _cloud(5, 8, 700, valid=0.6)
+    prep = cuda_knn.prepare_targets(T(t), T(mask))
+    n = int(mask.sum())
+    assert prep.tgt.shape == (700, 4) and prep.tgt.is_contiguous()
+    assert prep.tgt.dtype == torch.float32 and int(prep.cnt) == n
+    np.testing.assert_array_equal(prep.tgt[:n, :3].numpy(), t[mask])
+    assert (prep.tgt[n:] == 0).all() and (prep.tgt[:, 3] == 0).all()
+    np.testing.assert_array_equal(prep.perm.numpy()[:n], np.nonzero(mask)[0])
+
+
+@pytest.mark.parametrize("k,Q,Tn,blocks_at_least", [
+    (5, 12288, 65536, 2 * 132 * 2),     # scan-to-map surf
+    (5, 2048, 16384, 2 * 132),          # scan-to-map corner: few query tiles
+    (1, 8192, 32768, 2 * 132),          # ICP
+])
+def test_choose_splits_fills_the_card_at_the_path_shapes(k, Q, Tn,
+                                                        blocks_at_least):
+    cfg = cuda_knn.KernelConfig(R=2, U=4, threads=128, min_blocks=8,
+                                tile=512, stages=2, queue=16)
+    plan = cuda_knn.choose_splits(Q, Tn, cfg, 132, cuda_knn.WARPS_PER_SM[k])
+    assert plan.query_tiles == -(-Q // 256)
+    assert plan.blocks == plan.query_tiles * plan.splits >= blocks_at_least
+    assert plan.blocks * 4 >= 8 * 132            # >= 8 warps for every SM
+    assert Tn // plan.splits >= cuda_knn.MIN_SPLIT_TARGETS
+    assert plan.kernels == 2
+
+
+def test_choose_splits_never_cuts_a_small_set():
+    cfg = cuda_knn.KernelConfig(R=2, U=4, threads=128, min_blocks=8,
+                                tile=512, stages=2, queue=16)
+    for Tn in (0, 3, 255, 511):
+        assert cuda_knn.choose_splits(300, Tn, cfg, 132, 64).splits == \
+            max(1, Tn // cuda_knn.MIN_SPLIT_TARGETS)
+    assert cuda_knn.choose_splits(10 ** 6, 4096, cfg, 132, 64).splits == 1
