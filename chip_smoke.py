@@ -18,21 +18,33 @@ Phases, each printing its own lines:
    the same work and beside ``torch.cdist`` + ``topk`` (not the same
    function); then the tie rule across splits and tiles and the smallest
    target counts (0, 1, fewer than S);
+   and ``cuda_knn.prepare_targets`` (torch ops) at the callers' pads beside
+   its bound in bytes;
 5. slice: ``SlamEngine(cfg, device="cuda")`` with loop closure off over the
-   first scans of the drive;
-6. loop path: ``SlamEngine(default_config(), device="cuda")``, loop closure
+   first scans of the drive; then the same slice with the reference's
+   two-stage 3-DOF odometry (``joint_6dof=False``, sparse pick sets);
+6. loop path: ``SlamEngine(default_config())`` on the card, loop closure
    on, over the whole drive: Scan Context retrieval, ICP through the kernel
    at k=1, pose-graph re-solve; kNN launches per k, accepted loop factors
    against ground truth, ATE, scans/s, peak memory, and the host syncs of
    loop ticks apart from the rest;
-7. loop tick breakdown: the parts of one loop tick (retrieval, radius
-   detection, history submap, keyframe cloud, ICP, one verification, the
-   re-solve) on the loop path's end state, each with its synchronized
-   time, its kernel launches and its host syncs;
-8. real clouds: the kernel against the plain version, timed as in 4, on
+7. IMU path: the same drive and checks with ``imu.enabled`` and the bench's
+   synthesized 100 Hz IMU stream, one ``push_imu_batch`` a scan (IMU
+   de-skew, rotation prior, roll / pitch blend);
+8. runner and export: the drive's first scans written as a MulRan-layout
+   directory and run through ``runner.run_mulran`` (native loader built
+   with g++); the IMU path's end state through ``save_checkpoint`` /
+   ``load_checkpoint`` into a fresh engine, every field equal, and one
+   mapping + loop step of the resumed engine against the original's;
+9. IMU parts and loop tick breakdown: what the IMU adds to a scan
+   (``push_imu_batch``, the de-skew of both grids, the prior, the blend) and
+   the parts of one loop tick (retrieval, radius detection, history submap,
+   keyframe cloud, ICP, one verification, the re-solve), each with its
+   synchronized time, its kernel launches and its host syncs;
+10. real clouds: the kernel against the plain version, timed as in 4, on
    the loop path's own clouds: k=5 on the submap the last keyframe was
    matched against, queried with that keyframe's downsampled corner and
-   surf features at its pose; k=1 on phase 7's keyframe cloud and history
+   surf features at its pose; k=1 on phase 9's keyframe cloud and history
    submap.
 
 ``--drive cloverleaf`` swaps the figure-8 for the bench's loop precision /
@@ -52,6 +64,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import Counter
@@ -59,15 +72,17 @@ from collections import Counter
 import numpy as np
 import torch
 
-from sc_lego_loam_tpu_torch import loop, mapping, pipeline, posegraph
-from sc_lego_loam_tpu_torch.config import default_config
+from sc_lego_loam_tpu_torch import (imu as imu_mod, loop, mapping, pipeline,
+                                    posegraph, runner)
+from sc_lego_loam_tpu_torch.config import ImuConfig, default_config
 from sc_lego_loam_tpu_torch.models import scan_context
 from sc_lego_loam_tpu_torch.ops import cuda_knn, icp, knn as plain_knn
 from sc_lego_loam_tpu_torch.ops.compact import compact
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
 from sc_lego_loam_tpu_torch.tools.knn_tune import (graph_ms, ptxas_lines,
                                                    uniform_cloud)
-from sc_lego_loam_tpu_torch.utils import evaluate, se3, synthetic
+from sc_lego_loam_tpu_torch.utils import (evaluate, export, native_io, se3,
+                                          synthetic)
 
 KNN_SOURCE = "sc_lego_loam_tpu_torch/csrc/knn.cu"
 KNN_REPLACES = "sc_lego_loam_tpu/ops/pallas_knn.py:146"
@@ -105,7 +120,10 @@ DRIVES = {
 LOOP_WARMUP = 6
 SLICE_SCANS = 12      # loop-off slice: the drive's first scans
 SLICE_WARMUP = 4
+RUNNER_SCANS = 24     # scans written out for the MulRan runner
 ATE_BAR = 1.0         # the verify recipe's PASS bar (m)
+RESUME_TOL_M = 1e-2   # resumed against original, one mapping + loop step:
+RESUME_TOL_DEG = 0.1  # float atomics in the voxel filter order their sums
 FACTOR_TOL_M = 1.0    # a loop factor is true within this of ground truth
 SYNC_FILES = ("ops/solver.py", "torch/cuda/__init__.py")
 
@@ -326,13 +344,18 @@ def expected_k5(cfg, map_ticks: int) -> int:
     return 2 * researches * map_ticks
 
 
-def run_slice(pts, msk, gt, card):
-    """Loop closure off over the drive's first scans."""
-    cfg = default_config()
-    cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, enabled=False))
+def loop_off(cfg):
+    return cfg.replace(loop=dataclasses.replace(cfg.loop, enabled=False))
+
+
+def run_slice(cfg, label, pts, msk, gt, card):
+    """``cfg`` (loop closure off) over the drive's first scans.  Returns
+    (kNN launches, host syncs in the timed window)."""
+    check(not cfg.loop.enabled, f"{label}: loop closure is on")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    engine = SlamEngine(cfg, device="cuda")
+    engine = SlamEngine(cfg)
+    check(engine.device.type == "cuda", "the default device is not the card")
     cuda_knn.reset_launches()
     for i in range(SLICE_WARMUP):
         engine.process_scan(pts[i], msk[i], t=i * 0.1)
@@ -354,36 +377,73 @@ def run_slice(pts, msk, gt, card):
     ate = evaluate.ate_rmse(est, gt[:len(est)])
     n_kf = int(engine.m.kf.count)
     expected = expected_k5(cfg, engine.map_ticks)
-    fps = (SLICE_SCANS - SLICE_WARMUP) / wall
-    print(f"slice (loop closure off): scans={SLICE_SCANS} "
+    timed = SLICE_SCANS - SLICE_WARMUP
+    fps = timed / wall
+    print(f"{label}: scans={SLICE_SCANS} "
           f"warmup={SLICE_WARMUP} scans_per_s={fps:.3f} "
           f"ms_per_scan={1e3 / fps:.3f} peak_mem_bytes={peak} "
           f"keyframes={n_kf} mapping_ticks={engine.map_ticks} "
           f"knn_launches_k5={launches[5]} (expected {expected}) "
           f"knn_launches_k1={launches[1]} "
-          f"host_syncs_timed_window={len(syncs)} ate_m={ate:.4f} "
+          f"host_syncs_timed_window={len(syncs)} "
+          f"({len(syncs) / timed:.2f} a scan) ate_m={ate:.4f} "
           f"[{card}]", flush=True)
-    print_syncs("slice", syncs)
+    print_syncs(label, syncs)
     check(est.shape == (SLICE_SCANS, 4, 4), f"trajectory shape {est.shape}")
     check(bool(np.isfinite(est).all()), "trajectory is not finite")
     check(launches[5] > 0 and launches[5] == expected,
-          f"slice: k=5 launches {launches[5]}, expected {expected}")
-    check(launches[1] == 0, f"slice: k=1 launches {launches[1]} with loops off")
-    check(engine.loop_ticks == 0, "slice: a loop tick ran with loops off")
-    check(ate < ATE_BAR, f"slice: ATE {ate} >= {ATE_BAR} m")
-    check(n_kf > 0, "slice: no keyframe inserted")
-    return launches
+          f"{label}: k=5 launches {launches[5]}, expected {expected}")
+    check(launches[1] == 0, f"{label}: k=1 launches {launches[1]}, loops off")
+    check(engine.loop_ticks == 0, f"{label}: a loop tick ran with loops off")
+    check(ate < ATE_BAR, f"{label}: ATE {ate} >= {ATE_BAR} m")
+    check(n_kf > 0, f"{label}: no keyframe inserted")
+    stray = stray_syncs(syncs)
+    check(not stray, f"{label}: a sync other than eigh: "
+          + ", ".join(sorted({where(w) for w in stray})))
+    return launches, len(syncs)
 
 
-def run_loop_path(pts, msk, gt, card):
-    """The main path: ``default_config()``, loop closure on, the whole
-    drive."""
+def stray_syncs(syncs):
+    """Those not raised in ``ops/solver.py`` (``torch.linalg.eigh`` in the
+    degeneracy guard) or by the watch's own switch inside torch/cuda."""
+    return [w for w in syncs
+            if not where(w).rsplit(":", 1)[0].endswith(SYNC_FILES)]
+
+
+def imu_feeder(engine, gt):
+    """The bench's IMU stream for the drive (100 Hz, synthesized from the
+    scan-end ground-truth poses, seed 11) and ``feed(i)``, which pushes the
+    samples up to scan i's end in one batch.  Returns (feed, batch sizes)."""
+    times, rpy, acc, gyro = synthetic.make_imu_samples(
+        gt, t0=0.1, period=0.1, rate_hz=100, seed=11)
+    ends = np.searchsorted(times, (np.arange(len(gt)) + 1) * 0.1 + 1e-9,
+                           side="right")
+    starts = np.concatenate([[0], ends[:-1]])
+    sizes = []
+
+    def feed(i):
+        lo, hi = starts[i], ends[i]
+        if hi > lo:       # one padded batch per scan
+            engine.push_imu_batch(times[lo:hi], rpy[lo:hi], acc[lo:hi],
+                                  gyro[lo:hi])
+            sizes.append(hi - lo)
+
+    return feed, sizes
+
+
+def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False):
+    """``cfg`` (loop closure on) over the whole drive; with ``with_imu`` the
+    IMU stream is fed scan by scan.  Returns (kNN launches, engine, a
+    summary dict)."""
     n_scans = len(gt)
-    cfg = default_config()
-    check(cfg.loop.enabled and not cfg.imu.enabled, "default_config changed")
+    check(cfg.loop.enabled and cfg.imu.enabled == with_imu,
+          f"{label}: not the configuration it names")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    engine = SlamEngine(cfg, device="cuda")
+    held = torch.cuda.memory_allocated()  # the scans, an earlier path's engine
+    engine = SlamEngine(cfg)
+    feed_imu, batch_sizes = imu_feeder(engine, gt) if with_imu \
+        else ((lambda i: None), [])
     cuda_knn.reset_launches()
 
     # Watch every loop tick from outside: which recorded warnings fall
@@ -410,6 +470,7 @@ def run_loop_path(pts, msk, gt, card):
     pipeline.loop_step = watched_loop_step
     try:
         for i in range(LOOP_WARMUP):
+            feed_imu(i)
             engine.process_scan(pts[i], msk[i], t=i * 0.1)
         torch.cuda.synchronize()
         with warnings.catch_warnings(record=True) as caught:
@@ -418,6 +479,7 @@ def run_loop_path(pts, msk, gt, card):
             torch.cuda.set_sync_debug_mode("warn")
             t0 = time.perf_counter()
             for i in range(LOOP_WARMUP, n_scans):
+                feed_imu(i)
                 engine.process_scan(pts[i], msk[i], t=i * 0.1)
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()          # the window's one final sync
@@ -461,29 +523,42 @@ def run_loop_path(pts, msk, gt, card):
     fps = timed / wall
     expected5 = expected_k5(cfg, engine.map_ticks)
     k1_cap = 2 * engine.loop_ticks * (cfg.loop.icp_max_iterations + 1)
+    stages = engine.timer.summary(skip_first=LOOP_WARMUP)
 
-    print(f"loop path (default_config, loop closure on): scans={n_scans} "
+    print(f"{label}: scans={n_scans} "
           f"warmup={LOOP_WARMUP} scans_per_s={fps:.3f} "
           f"ms_per_scan={1e3 / fps:.3f} peak_mem_bytes={peak} "
+          f"(of which {held} held before the path began) "
           f"keyframes={n_kf} mapping_ticks={engine.map_ticks} "
           f"loop_ticks={engine.loop_ticks} "
           f"knn_launches_k5={launches[5]} (expected {expected5}) "
           f"knn_launches_k1={launches[1]} (at most {k1_cap}) "
           f"loops_closed={loops_closed} [{card}]", flush=True)
-    print(f"loop factors: accepted={pr['accepted']} "
+    print(f"{label} stages, host ms to launch (mean): " + " ".join(
+        f"{name}={1e3 * st['mean']:.2f} (n={st['n']})"
+        for name, st in sorted(stages.items())) + f" [{card}]", flush=True)
+    if with_imu:
+        print(f"{label}: imu_batches={len(batch_sizes)} samples_per_batch="
+              f"{min(batch_sizes)}-{max(batch_sizes)} (pad "
+              f"{engine.IMU_BATCH_PAD}) imu_samples_buffered="
+              f"{int(engine.p.imu.count)} [{card}]", flush=True)
+        check(int(engine.p.imu.count) == sum(batch_sizes) > n_scans,
+              f"{label}: the buffer did not take every sample")
+    print(f"{label} factors: accepted={pr['accepted']} "
           f"true={pr['true_factors']} precision={pr['precision']} "
           f"recall={pr['recall']} revisit_events={pr['revisit_events']} "
           f"(gate {FACTOR_TOL_M} m) ate_m={ate:.4f} "
           f"ate_as_published_m={ate_raw:.4f} [{card}]", flush=True)
-    for label, group in (("closed", closed), ("verified, not closed", verified),
-                         ("no candidate", idle)):
-        print(f"loop ticks {label}: n={len(group)} "
+    for name, group in (("closed", closed), ("verified, not closed", verified),
+                        ("no candidate", idle)):
+        print(f"{label} loop ticks {name}: n={len(group)} "
               f"mean_ms_cuda_events={mean([t['ms'] for t in group]):.3f} "
               f"mean_ms_host={mean([t['host_ms'] for t in group]):.3f} "
+              f"max_ms_host={max([t['host_ms'] for t in group], default=0):.3f} "
               f"mean_host_syncs={mean([t['syncs'] for t in group]):.2f} "
               f"mean_k1_launches={mean([t['k1'] for t in group]):.2f} "
               f"[{card}]", flush=True)
-    print(f"host syncs in the {timed} timed scans: loop_ticks="
+    print(f"{label} host syncs in the {timed} timed scans: loop_ticks="
           f"{len(loop_syncs)} elsewhere={len(other_syncs)} [{card}]",
           flush=True)
     print_syncs("loop tick", loop_syncs)
@@ -491,26 +566,142 @@ def run_loop_path(pts, msk, gt, card):
 
     check(est.shape == (n_scans, 4, 4), f"trajectory shape {est.shape}")
     check(bool(np.isfinite(est).all()) and bool(np.isfinite(raw).all()),
-          "trajectory is not finite")
-    check(loops_closed >= 1, "loop path: no loop closed")
+          f"{label}: trajectory is not finite")
+    check(loops_closed >= 1, f"{label}: no loop closed")
     check(len(closed) == loops_closed, "closed ticks and loops_closed differ")
     check(0 < launches[1] <= k1_cap,
-          f"loop path: k=1 launches {launches[1]} not in (0, {k1_cap}]")
+          f"{label}: k=1 launches {launches[1]} not in (0, {k1_cap}]")
     check(launches[5] == expected5,
-          f"loop path: k=5 launches {launches[5]}, expected {expected5}")
+          f"{label}: k=5 launches {launches[5]}, expected {expected5}")
     check(pr["accepted"] >= 1 and pr["precision"] == 1.0,
-          f"loop path: accepted factors not all true: {pr}")
-    check(ate < ATE_BAR, f"loop path: ATE {ate} >= {ATE_BAR} m")
-    # perception_step and mapping_step gained no sync: only the eigh of
+          f"{label}: accepted factors not all true: {pr}")
+    check(ate < ATE_BAR, f"{label}: ATE {ate} >= {ATE_BAR} m")
+    # perception_step and mapping_step have no sync but the eigh of
     # solver.degeneracy_projector (one per odometry step and per mapping
-    # tick) and the one inside torch/cuda, as before loop closure.
-    stray = [w for w in other_syncs if not where(w).rsplit(":", 1)[0]
-             .endswith(SYNC_FILES)]
-    check(not stray, "a new sync outside the loop ticks: "
+    # tick) and the one inside torch/cuda; the IMU adds none.
+    stray = stray_syncs(other_syncs)
+    check(not stray, f"{label}: a new sync outside the loop ticks: "
           + ", ".join(sorted({where(w) for w in stray})))
     check(len(other_syncs) <= timed + engine.map_ticks + 1,
-          f"{len(other_syncs)} syncs outside loop ticks")
-    return launches, engine
+          f"{label}: {len(other_syncs)} syncs outside loop ticks")
+    summary = dict(scans_per_s=fps, ate=ate, ate_raw=ate_raw,
+                   syncs_elsewhere=len(other_syncs), peak=peak - held)
+    return launches, engine, summary
+
+
+def write_mulran_directory(root, scans, valids, gt):
+    """Scans as ``sensor_data/Ouster/<timestamp_ns>.bin`` (float32 x, y, z,
+    intensity of the real returns) and ``global_pose.csv``, 10 Hz."""
+    folder = os.path.join(root, "sensor_data", "Ouster")
+    os.makedirs(folder)
+    t0_ns = 1_566_535_000_000_000_000
+    rows = []
+    for i in range(len(scans)):
+        ts = t0_ns + i * 100_000_000
+        pts = scans[i][valids[i]]
+        np.concatenate([pts, np.ones((len(pts), 1), np.float32)],
+                       1).tofile(os.path.join(folder, f"{ts}.bin"))
+        rows.append([ts] + list(gt[i][:3, :4].reshape(-1)))
+    np.savetxt(os.path.join(root, "global_pose.csv"),
+               np.asarray(rows, np.float64), delimiter=",")
+
+
+def run_runner(scans, valids, gt, card):
+    """``runner.run_mulran`` on the card over the drive's first scans,
+    written out in the MulRan layout; the native loader must serve."""
+    with tempfile.TemporaryDirectory() as root:
+        write_mulran_directory(root, scans[:RUNNER_SCANS],
+                               valids[:RUNNER_SCANS], gt[:RUNNER_SCANS])
+        cuda_knn.reset_launches()
+        t0 = time.perf_counter()
+        res = runner.run_mulran(root)
+        took = time.perf_counter() - t0
+    launches = dict(cuda_knn.launches)
+    check(res["loader"] == "native", "runner: the native loader did not "
+          f"serve: {native_io.why_unavailable()}")
+    print(f"runner (run_mulran, default config, MulRan layout written from "
+          f"the drive): loader={res['loader']} scans={res['scans']} "
+          f"scans_per_s={res['fps']:.3f} (after 6 warm-up scans, scans read "
+          f"from disk and uploaded) keyframes={res['keyframes']} "
+          f"loops_closed={res['loops_closed']} "
+          f"ate_rmse_m={res.get('ate_rmse_m', float('nan')):.4f} "
+          f"gt_length_m={res.get('gt_length_m', float('nan')):.2f} "
+          f"knn_launches_k5={launches[5]} seconds={took:.2f} "
+          f"device={res['engine'].device} [{card}]", flush=True)
+    check(res["scans"] == RUNNER_SCANS and res["engine"].device.type == "cuda",
+          "runner: not every scan ran on the card")
+    check("ate_rmse_m" in res and res["ate_rmse_m"] < ATE_BAR,
+          f"runner: ate_rmse_m {res.get('ate_rmse_m')} missing or >= "
+          f"{ATE_BAR} m")
+    check(bool(np.isfinite(res["est"]).all()), "runner: trajectory not finite")
+    check(launches[5] > 0, "runner: the kNN kernel was never launched")
+    return launches
+
+
+def checkpoint_resume(engine, pts, msk, card):
+    """``engine`` (the IMU path's end state, full-size banks) saved, loaded
+    into a fresh engine on the card, every field compared bit for bit; then
+    one more scan: its perception step once, and the mapping + loop step of
+    both engines on the same inputs."""
+    cfg = engine.config
+    with tempfile.TemporaryDirectory() as folder:
+        path = os.path.join(folder, "engine.npz")
+        t0 = time.perf_counter()
+        export.save_checkpoint(path, engine)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        resumed = SlamEngine(cfg)
+        t0 = time.perf_counter()
+        export.load_checkpoint(path, resumed)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    raw = 0
+    differing = []
+
+    def leaves(eng):
+        return [*export.state_leaves(eng.p, "p."),
+                *export.state_leaves(eng.m, "m.")]
+
+    for (name, a), (_, b) in zip(leaves(engine), leaves(resumed)):
+        raw += a.numel() * a.element_size()
+        if a.dtype != b.dtype or b.device.type != "cuda" \
+                or not torch.equal(a, b) or a.data_ptr() == b.data_ptr():
+            differing.append(name)
+    host_equal = all(getattr(engine, f) == getattr(resumed, f) for f in
+                     ("map_ticks", "loop_ticks", "last_map_time"))
+    same_traj = np.array_equal(engine.trajectory_array(),
+                               resumed.trajectory_array())
+
+    # One more scan: the drive's last once more, as if the sensor stood.
+    scan, mask = pts[-1], msk[-1]
+    t = torch.full((), len(pts) * 0.1, device="cuda")
+    p, odom_pose, out_pts, out_mask, _ = pipeline.perception_step(
+        cfg, engine.p, engine.m.correction, scan, mask, t)
+    poses = []
+    for eng in (engine, resumed):
+        m = pipeline.mapping_step(
+            cfg, eng.m, p.odo.corner_last.xyz, p.odo.corner_last.mask,
+            p.odo.surf_last.xyz, p.odo.surf_last.mask, out_pts, out_mask,
+            odom_pose, scan, mask, t, p.imu)
+        m = pipeline.loop_step(cfg, m)
+        poses.append(m.pose.cpu().numpy())
+    d_m = float(np.linalg.norm(poses[0][:3, 3] - poses[1][:3, 3]))
+    R = poses[0][:3, :3].T @ poses[1][:3, :3]
+    d_deg = float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))))
+    print(f"checkpoint (IMU path's end state, {cfg.cap.max_keyframes}-"
+          f"keyframe banks, np.savez_compressed): file_bytes={size} "
+          f"state_bytes={raw} save_s={save_s:.2f} load_s={load_s:.2f} "
+          f"fields_differing={len(differing)} host_counters_equal="
+          f"{host_equal} trajectory_array_equal={same_traj} "
+          f"next_mapping_and_loop_step: d_pose_m={d_m:.2e} "
+          f"d_rot_deg={d_deg:.2e} (bars {RESUME_TOL_M} m, {RESUME_TOL_DEG} "
+          f"deg) [{card}]", flush=True)
+    check(not differing, f"checkpoint: fields differ after load: {differing}")
+    check(host_equal and same_traj, "checkpoint: the resumed engine's "
+          "counters or trajectory differ")
+    check(d_m < RESUME_TOL_M and d_deg < RESUME_TOL_DEG,
+          f"checkpoint: the resumed engine's next step differs: {d_m} m, "
+          f"{d_deg} deg")
 
 
 def real_cloud_checks(engine, clouds, card):
@@ -547,16 +738,101 @@ def real_cloud_checks(engine, clouds, card):
     return results
 
 
-def loop_tick_breakdown(engine, card):
-    """Where a loop tick's time goes, on the loop path's end state and for
-    its first accepted factor (newer keyframe i against older j, the Scan
-    Context route: query cloud placed at j's pose).  Per part: host time
-    of a call that ends in a synchronize (mean of 3), the kernels it
-    launches and their summed device time (``torch.profiler``, one call),
-    and the host syncs it makes (sync debug mode, one call)."""
+def measure_parts(label, parts, card):
+    """Per (name, fn): host time of a call that ends in a synchronize (mean
+    of 3), the kernels it launches and their summed device time
+    (``torch.profiler``, one call), and the host syncs it makes (sync debug
+    mode, one call).  Run only after the drives: a profiler session slows
+    every later launch of the process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
+    for name, fn in parts:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / 3
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            fn()
+            torch.cuda.set_sync_debug_mode("default")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        n_kernels = sum(e.count for e in on_card)
+        dev_ms = sum(getattr(e, "self_device_time_total", 0) or 0
+                     for e in on_card) / 1e3
+        n_syncs = len(sync_warnings(rec))
+        print(f"{label}: {name}: ms_synchronized={host_ms:.3f} "
+              f"kernel_launches={n_kernels} device_ms={dev_ms:.3f} "
+              f"host_syncs={n_syncs} [{card}]", flush=True)
+        check(n_kernels > 0, f"the profiler saw no kernel in: {name}")
+        out[name] = dict(launches=n_kernels, syncs=n_syncs)
+    return out
+
+
+def imu_parts(engine, pts, msk, card):
+    """What the IMU adds to a scan, on the IMU path's end state: the batch
+    push (10 samples in the pad of 32, and a full pad), the de-skew of the
+    segmented cloud's and the outlier grid's points, the rotation prior, and
+    the roll / pitch blend of a mapping tick."""
+    cfg, p = engine.config, engine.p
+    rng = np.random.default_rng(3)
+    t_last = float(p.imu.time.max())
+    grid = cfg.lidar.n_scan * cfg.lidar.horizon_scan
+
+    def batch(m):
+        times = t_last + 0.01 * (1 + np.arange(m))
+        return (times, rng.normal(0, 0.01, (m, 3)),
+                rng.normal(0, 0.1, (m, 3)) + [0, 0, 9.81],
+                rng.normal(0, 0.01, (m, 3)))
+
+    ten, full = batch(10), batch(engine.IMU_BATCH_PAD)
+    probe = SlamEngine(cfg)             # takes the pushes; same buffer size
+    flat = pts[-1][:grid].contiguous()
+    rel = torch.rand(grid, device="cuda")
+    t = torch.full((), t_last - 0.1, device="cuda")
+    v = torch.zeros(3, device="cuda")
+    pose = engine.m.pose
+    blend = cfg.imu.blend
+
+    def blended():
+        rpy = imu_mod.rpy_at(p.imu, t)
+        p6 = se3.mat_to_pose6(pose)
+        p6b = torch.cat([(1 - blend) * p6[:2] + blend * rpy[:2], p6[2:]])
+        return torch.where(p.imu.count > 1, se3.pose6_to_mat(p6b), pose)
+
+    parts = [
+        ("push_imu_batch, 10 samples", lambda: probe.push_imu_batch(*ten)),
+        ("push_imu_batch, 32 samples", lambda: probe.push_imu_batch(*full)),
+        (f"imu.deskew_to_end, one grid of {grid} points (two a scan)",
+         lambda: imu_mod.deskew_to_end(p.imu, flat, rel, t,
+                                       cfg.lidar.scan_period, v)),
+        ("imu.motion_prior", lambda: imu_mod.motion_prior(
+            p.imu, t, t + cfg.lidar.scan_period)),
+        ("roll / pitch blend (imu.rpy_at + pose6 round trip)", blended),
+    ]
+    got = measure_parts("imu part", parts, card)
+    check(all(part["syncs"] == 0 for part in got.values()),
+          "an IMU part synchronizes")
+    check(got["push_imu_batch, 10 samples"]["launches"]
+          == got["push_imu_batch, 32 samples"]["launches"],
+          "push_imu_batch's launches depend on the number of samples")
+
+
+def loop_tick_breakdown(engine, card):
+    """Where a loop tick's time goes, on the loop path's end state and for
+    its first accepted factor (newer keyframe i against older j, the Scan
+    Context route: query cloud placed at j's pose), measured by
+    ``measure_parts``.  Returns the ICP's clouds."""
     cfg, m = engine.config, engine.m
     kf = m.kf
     cur, cand = m.loops.i[0].long(), m.loops.j[0].long()
@@ -584,33 +860,25 @@ def loop_tick_breakdown(engine, card):
          lambda: posegraph.solve(cfg, kf.poses6, kf.count, kf.odom_z,
                                  m.loops)),
     ]
-    for name, fn in parts:
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            fn()
-            torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / 3
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            fn()
-            torch.cuda.set_sync_debug_mode("default")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        n_kernels = sum(e.count for e in on_card)
-        dev_ms = sum(getattr(e, "self_device_time_total", 0) or 0
-                     for e in on_card) / 1e3
-        print(f"loop tick part: {name}: ms_synchronized={host_ms:.3f} "
-              f"kernel_launches={n_kernels} device_ms={dev_ms:.3f} "
-              f"host_syncs={len(sync_warnings(rec))} [{card}]", flush=True)
-        check(n_kernels > 0, f"the profiler saw no kernel in: {name}")
+    measure_parts("loop tick part", parts, card)
     return src, src_mask, dst, dst_mask
+
+
+def prepare_targets_times(card):
+    """``cuda_knn.prepare_targets`` (torch ops: compaction, 16-byte records,
+    slot -> index map) at its callers' target pads: device ms in a replayed
+    CUDA graph beside the bytes it must move (points and mask read; records,
+    map and count written) over the card's memory rate."""
+    for caller, T in (("scan-to-map surf submap", 65536),
+                      ("scan-to-map corner submap", 16384),
+                      ("ICP history submap", 32768)):
+        _, t, mask, _ = uniform_cloud(T, 8, T)
+        ms = graph_ms(lambda: cuda_knn.prepare_targets(t, mask), 10)
+        moved = T * 12 + T + T * 16 + T * 8 + 4
+        bound_ms = 1e3 * moved / PEAK_BYTES_PER_S
+        print(f"prepare_targets: {caller}: T={T} ms={ms:.4f} (device, graph "
+              f"of 10 calls) bytes_moved={moved} bound_ms={bound_ms:.5f} "
+              f"(bytes) bound_share={bound_ms / ms:.4f} [{card}]", flush=True)
 
 
 def check_no_jax():
@@ -653,28 +921,75 @@ def main():
                for seed, (name, k, Q, T, max_sq) in enumerate(SHAPES)]
     tie_and_small_count_checks(card)
     small_linalg_times(card)
+    prepare_targets_times(card)
+
+    def elapsed(after):
+        print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {after}",
+              flush=True)
 
     pts = torch.from_numpy(scans).cuda()
     msk = torch.from_numpy(valids).cuda()
-    slice_launches = run_slice(pts, msk, gt, card)
-    print(f"elapsed: {time.perf_counter() - t_start:.1f} s before the loop "
-          f"path", flush=True)
-    loop_launches, engine = run_loop_path(pts, msk, gt, card)
+    base = default_config()
+    check(base.loop.enabled and not base.imu.enabled
+          and base.odom.joint_6dof, "default_config changed")
+    paths = {}         # path -> kNN launches, counted from 0 for each
+    paths["slice"], joint_syncs = run_slice(
+        loop_off(base), "slice (loop closure off)", pts, msk, gt, card)
+    two_stage = loop_off(base).replace(odom=dataclasses.replace(
+        base.odom, joint_6dof=False, dense_queries=False))
+    paths["two-stage"], stage_syncs = run_slice(
+        two_stage, "two-stage slice (joint_6dof=False, sparse picks, loop "
+        "closure off)", pts, msk, gt, card)
+    print(f"two-stage odometry: host syncs in the slice's timed window "
+          f"{stage_syncs} against the joint solver's {joint_syncs} "
+          f"(one more eigh a scan expected: 3x3 per stage against one 6x6) "
+          f"[{card}]", flush=True)
+    elapsed("the slices")
+
+    paths["loop"], engine, lidar = run_loop_path(
+        base, "loop path (default_config, loop closure on)", pts, msk, gt,
+        card)
+    elapsed("the loop path")
+    imu_cfg = base.replace(imu=ImuConfig(enabled=True))
+    paths["imu"], imu_engine, with_imu = run_loop_path(
+        imu_cfg, "IMU path (imu.enabled, loop closure on)", pts, msk, gt,
+        card, with_imu=True)
+    print(f"IMU path beside the lidar-only loop path: ate_m "
+          f"{with_imu['ate']:.4f} / {lidar['ate']:.4f} ate_as_published_m "
+          f"{with_imu['ate_raw']:.4f} / {lidar['ate_raw']:.4f} scans_per_s "
+          f"{with_imu['scans_per_s']:.3f} / {lidar['scans_per_s']:.3f} "
+          f"host_syncs_outside_loop_ticks {with_imu['syncs_elsewhere']} / "
+          f"{lidar['syncs_elsewhere']} peak_mem_bytes_of_the_path "
+          f"{with_imu['peak']} / "
+          f"{lidar['peak']} [{card}]", flush=True)
+    elapsed("the IMU path")
+
+    paths["runner"] = run_runner(scans, valids, gt, card)
+    elapsed("the runner")
+    # From here on nothing counts as a launch of a path.
+    checkpoint_resume(imu_engine, pts, msk, card)
+    elapsed("the checkpoint")
+    imu_parts(imu_engine, pts, msk, card)
+    del imu_engine
     clouds = loop_tick_breakdown(engine, card)
-    # After the paths' launch counts were read: these calls do not count.
     real_cloud_checks(engine, clouds, card)
     check_no_jax()
-    print(f"elapsed: {time.perf_counter() - t_start:.1f} s in all",
-          flush=True)
+    elapsed("everything")
 
     surf, corner, icp = results
     common = dict(route="cuda", source=KNN_SOURCE, replaces=KNN_REPLACES)
+    per_path = {k: {name: n[k] for name, n in paths.items()} for k in (5, 1)}
+    print(f"kNN launches by path: k=5 {per_path[5]} k=1 {per_path[1]} "
+          f"[{card}]", flush=True)
     k5 = dict(name="knn_topk_k5", **common,
-              launches=slice_launches[5] + loop_launches[5], **surf)
+              launches=sum(per_path[5].values()), **surf)
     k5["max_abs_err"] = max(surf["max_abs_err"], corner["max_abs_err"])
-    k1 = dict(name="knn_topk_k1", **common, launches=loop_launches[1], **icp)
-    check(k5["launches"] > 0 and k1["launches"] > 0,
-          "a kernel of the path was never launched")
+    k1 = dict(name="knn_topk_k1", **common,
+              launches=sum(per_path[1].values()), **icp)
+    check(all(n > 0 for n in per_path[5].values()),
+          f"a path never launched the k=5 kernel: {per_path[5]}")
+    check(per_path[1]["loop"] > 0 and per_path[1]["imu"] > 0,
+          f"a loop-closing path never launched the k=1 kernel: {per_path[1]}")
     print(f"card: {card}")
     print(json.dumps({"kernels": [k5, k1]}))
     print(json.dumps({"ok": True, "device": {

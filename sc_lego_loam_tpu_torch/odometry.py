@@ -1,17 +1,20 @@
 """Scan-to-scan odometry (port of ``sc_lego_loam_tpu/odometry.py``;
 reference featureAssociation.cpp).
 
-Joint 6-DOF trust-region LM on an se(3) twist over point-to-line (corner)
-and point-to-plane (surf) residuals, with correspondences re-searched every
+Trust-region LM on an se(3) twist over point-to-line (corner) and
+point-to-plane (surf) residuals, with correspondences re-searched every
 ``research_every`` iterations by brute force over packed
 (quantized distance | index) int32 keys.  Jacobians are forward-mode
-(``torch.func.jacfwd``).
+(``torch.func.jacfwd``).  ``joint_6dof`` solves all six DOF together;
+without it the reference's two stages run: surf features solve
+[roll, pitch, tz], then corner features [yaw, tx, ty] (fA.cpp:1270-1478).
 
-Control flow never reads a device value on the host: the LM loop runs its
-fixed iteration count and freezes the state with ``torch.where`` once
-converged, and the first-scan initialization is a ``torch.where`` between
-the tracked and the initializing result.  The reference's two-stage 3-DOF
-split (``joint_6dof=False``) is not ported yet and raises.
+Control flow never branches on a device value: an LM loop runs its fixed
+iteration count and freezes the state with ``torch.where`` once converged,
+and the first-scan initialization is a ``torch.where`` between the tracked
+and the initializing result.  The one host read of an LM loop is inside
+``torch.linalg.eigh`` (the degeneracy guard), which checks its status
+there: one sync a scan jointly, two in two stages.
 """
 
 from __future__ import annotations
@@ -172,58 +175,104 @@ def _clamp_to_prior(xi_new, xi_prior, bounds):
     return xi_prior + d * s
 
 
-def _joint_loop(xi0, xi_anchor, tube, sharp, flat, corner_t, surf_t, ocfg):
-    """Joint 6-DOF LM over corner + surf residuals (odometry._joint_loop of
-    the JAX package).  Returns (xi, n_valid_correspondences)."""
-
-    def corner_research(xi):
-        return _find_corner(_apply(xi, sharp.xyz), sharp.mask, corner_t, ocfg)
-
-    def surf_research(xi):
-        return _find_surf(_apply(xi, flat.xyz), flat.mask, surf_t, ocfg)
+def _corner_terms(sharp, corner_t, ocfg):
+    """(research(xi) -> corres, residual_fns(corres) -> tuple of (xi -> r))
+    of the corner features; ``corres[-1]`` is the valid mask."""
 
     def research(xi):
-        return corner_research(xi), surf_research(xi)
+        return _find_corner(_apply(xi, sharp.xyz), sharp.mask, corner_t, ocfg)
 
-    def corner_fn(cc):
+    def residual_fns(cc):
         j, l2, _ = cc
         a, b = corner_t.xyz[j], corner_t.xyz[l2]
-        return lambda x: _corner_residual(x, sharp.xyz, a, b)
+        return (lambda x: _corner_residual(x, sharp.xyz, a, b),)
 
-    def surf_fn(sc):
+    return research, residual_fns
+
+
+def _surf_terms(flat, surf_t, ocfg):
+    """The same for the surf features."""
+
+    def research(xi):
+        return _find_surf(_apply(xi, flat.xyz), flat.mask, surf_t, ocfg)
+
+    def residual_fns(sc):
         j, l2, l3, _ = sc
         a, b, c = surf_t.xyz[j], surf_t.xyz[l2], surf_t.xyz[l3]
-        return lambda x: _surf_residual(x, flat.xyz, a, b, c)
+        return (lambda x: _surf_residual(x, flat.xyz, a, b, c),)
 
-    eye6 = torch.eye(6, dtype=xi0.dtype, device=xi0.device)
+    return research, residual_fns
+
+
+def _both_terms(corner_terms, surf_terms):
+    """Corner and surf terms as one: residual functions side by side (the
+    loop differentiates each on its own), valid masks joined."""
+    corner_research, corner_fns = corner_terms
+    surf_research, surf_fns = surf_terms
+
+    def research(xi):
+        cc, sc = corner_research(xi), surf_research(xi)
+        return cc, sc, torch.cat([cc[-1], sc[-1]])
+
+    def residual_fns(corres):
+        return corner_fns(corres[0]) + surf_fns(corres[1])
+
+    return research, residual_fns
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _lm_loop(xi0, xi_anchor, tube, param_idx, terms, ocfg):
+    """Trust-region LM over the twist components ``param_idx`` on the
+    residuals of ``terms`` (``_joint_loop`` and ``_stage_loop`` of the JAX
+    package): adaptive accept / reject LM where the reference takes fixed
+    5 % steps (fA.cpp:1321).  All six components: the joint solve, which
+    keeps a large yaw error from poisoning roll / pitch / z through bad
+    correspondences; three: one stage of the reference's split.
+    Returns (xi, number of valid correspondences at the solution)."""
+    research, residual_fns = terms
+    dev, P = xi0.device, len(param_idx)
+    eye = torch.eye(P, dtype=xi0.dtype, device=dev)
+    zero = torch.zeros((), dtype=xi0.dtype, device=dev)
 
     def iteration(it, state):
         xi, corres, Pm, degen, lam = state
         if it % ocfg.research_every == 0 and it > 0:
             corres = research(xi)
-        cc, sc = corres
-        cf, sf = corner_fn(cc), surf_fn(sc)
-        r = torch.cat([cf(xi), sf(xi)])
-        J = torch.cat([jacfwd(cf)(xi), jacfwd(sf)(xi)])
-        valid = torch.cat([cc[-1], sc[-1]])
+        fns = residual_fns(corres)
+
+        def residual(x):
+            return _cat([f(x) for f in fns])
+
+        r = residual(xi)
+        J = _cat([jacfwd(f)(xi) for f in fns])                   # (N,6)
+        if P < 6:   # columns by slicing: an index list is a host copy
+            J = torch.stack([J[:, i] for i in param_idx], 1)
         w = solver.robust_weight(r.abs(), ocfg.robust_slope,
                                  ocfg.robust_min_weight,
                                  it >= ocfg.robust_after_iter)
-        w = w * valid.to(r.dtype)
+        w = w * corres[-1].to(r.dtype)
         Jw = J * w[:, None]
         H = Jw.T @ J
         g = Jw.T @ r
-        Hd = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye6
+        Hd = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye
         delta = -solver.solve_spd(Hd, g)
         if it == 0:      # degeneracy eigh once (fA.cpp:1329-1356)
             Pm, degen = solver.degeneracy_projector(H, ocfg.eig_threshold)
         delta = torch.where(degen, Pm @ delta, delta)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)
+        if P < 6:
+            parts = [zero] * 6
+            for n, i in enumerate(param_idx):
+                parts[i] = delta[n]
+            delta = torch.stack(parts)
         delta = _clamp_step(delta, ocfg)
         xi_new = _clamp_to_prior(xi + delta, xi_anchor, tube)
 
         cost_old = (w * r * r).sum()
-        r_new = torch.cat([cf(xi_new), sf(xi_new)])
+        r_new = residual(xi_new)
         cost_new = (w * r_new * r_new).sum()
         accept = (cost_new < cost_old) & torch.isfinite(cost_new)
         xi = torch.where(accept, xi_new, xi)
@@ -234,28 +283,38 @@ def _joint_loop(xi0, xi_anchor, tube, sharp, flat, corner_t, surf_t, ocfg):
                                          ocfg.delta_trans_cm)
         return done, (xi, corres, Pm, degen, lam)
 
-    state = (xi0, research(xi0), eye6,
-             torch.zeros((), dtype=torch.bool, device=xi0.device),
-             torch.full((), 1e-3, dtype=torch.float32, device=xi0.device))
-    done = torch.zeros((), dtype=torch.bool, device=xi0.device)
+    state = (xi0, research(xi0), eye,
+             torch.zeros((), dtype=torch.bool, device=dev),
+             torch.full((), 1e-3, dtype=torch.float32, device=dev))
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     for it in range(ocfg.max_iterations):
         new_done, new_state = iteration(it, state)
         state = solver.freeze(done, state, new_state)
         done = done | new_done
-    xi, (cc, sc) = state[0], state[1]
-    return xi, cc[-1].sum() + sc[-1].sum()
+    return state[0], state[1][-1].sum()
 
 
-def step(config: PipelineConfig, state: OdometryState, feats: FeatureSet):
+def step(config: PipelineConfig, state: OdometryState, feats: FeatureSet,
+         xi_prior: torch.Tensor | None = None):
     """One odometry tick.  Returns (new_state, world_pose (4,4), rel twist).
-    The constant-velocity prior (previous twist) is the initial guess."""
+
+    ``xi_prior``: optional initial-guess twist (the IMU dead-reckoned
+    motion, updateInitialGuess fA.cpp:1639-1664); defaults to the
+    constant-velocity prior (previous twist)."""
     ocfg = config.odom
-    if not ocfg.joint_6dof:
-        raise NotImplementedError(
-            "the two-stage 3-DOF odometry (joint_6dof=False) is not ported")
-    xi0 = state.motion
+    xi0 = state.motion if xi_prior is None else xi_prior
+    # The trust tube is a DYNAMICS bound (bounded rate change per scan), so
+    # it stays anchored at the previous scan's ESTIMATED motion, never at
+    # the initial guess.  With a prior its radius grows by the prior's
+    # deviation from that motion: a measured rate change larger than the
+    # dynamics bound must stay reachable.
+    xi_anchor = state.motion
     tube = (ocfg.max_rot_from_prior, ocfg.max_trans_from_prior)
-    if ocfg.dense_queries:
+    if xi_prior is not None:
+        dprior = xi_prior - state.motion
+        tube = (tube[0] + torch.linalg.vector_norm(dprior[:3]),
+                tube[1] + torch.linalg.vector_norm(dprior[3:]))
+    if ocfg.joint_6dof and ocfg.dense_queries:
         def subsample(fc: FeatureCloud, cap: int) -> FeatureCloud:
             # Strided static-shape subsample of the padded bank.
             k = max(1, fc.xyz.shape[0] // cap)
@@ -265,10 +324,21 @@ def step(config: PipelineConfig, state: OdometryState, feats: FeatureSet):
         flat = subsample(feats.less_flat, ocfg.query_surf_cap)
     else:
         sharp, flat = feats.sharp, feats.flat
+    corner_terms = _corner_terms(sharp, state.corner_last, ocfg)
+    surf_terms = _surf_terms(flat, state.surf_last, ocfg)
 
-    xi2, n_corres = _joint_loop(xi0, xi0, tube, sharp, flat,
-                                state.corner_last, state.surf_last, ocfg)
-    xi = torch.where(n_corres >= ocfg.min_total_corres, xi2, xi0)
+    if ocfg.joint_6dof:
+        xi2, n_corres = _lm_loop(xi0, xi_anchor, tube, range(6),
+                                 _both_terms(corner_terms, surf_terms), ocfg)
+        enough = n_corres >= ocfg.min_total_corres
+    else:
+        # Reference two-stage split: surf -> [roll, pitch, tz], then
+        # corner -> [yaw, tx, ty]; gated on the feature counts.
+        enough = (sharp.mask.sum() >= ocfg.min_feature_points) & \
+                 (flat.mask.sum() >= ocfg.min_surf_points)
+        xi1, _ = _lm_loop(xi0, xi_anchor, tube, (0, 1, 5), surf_terms, ocfg)
+        xi2, _ = _lm_loop(xi1, xi_anchor, tube, (2, 3, 4), corner_terms, ocfg)
+    xi = torch.where(enough, xi2, xi0)
     xi = torch.where(torch.isfinite(xi), xi, 0.0)
     # First scan: no targets yet — keep the pose, zero motion.
     xi = torch.where(state.initialized, xi, 0.0)

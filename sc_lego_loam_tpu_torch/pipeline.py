@@ -1,4 +1,4 @@
-"""The SLAM engine, IMU off (port of ``sc_lego_loam_tpu/pipeline.py``).
+"""The SLAM engine (port of ``sc_lego_loam_tpu/pipeline.py``).
 
 Three steps over device-resident state, as in the JAX package:
 
@@ -17,6 +17,11 @@ without a candidate skips the ICP and one without an accepted factor skips
 the re-solve.  The trajectory is fetched once, by ``trajectory_array``.
 State updates are in place where a buffer is large (trajectory rings,
 keyframe and descriptor banks).
+
+With ``imu.enabled`` the caller feeds IMU samples (``push_imu_batch``, all
+samples up to a scan's end before that scan); they de-skew the cloud, give
+the odometry its rotation prior and blend a sliver of roll / pitch into the
+mapped pose.  None of that reads a device value on the host either.
 """
 
 from __future__ import annotations
@@ -29,11 +34,12 @@ import torch
 
 from .config import PipelineConfig
 
-from . import frontend, loop, mapping, odometry, posegraph
+from . import frontend, imu as imu_mod, loop, mapping, odometry, posegraph
 from .models import scan_context
 from .ops import features as features_op
 from .ops.compact import compact_indices
 from .utils import se3
+from .utils.profiling import StageTimer
 
 
 def _extract(config: PipelineConfig, cloud, outlier_grid):
@@ -50,17 +56,34 @@ def _extract(config: PipelineConfig, cloud, outlier_grid):
     return fs, out_pts, ok
 
 
-def _pre_deskew(config: PipelineConfig, fo, odo_state):
+def _pre_deskew(config: PipelineConfig, fo, odo_state, imu_buf=None,
+                t=None):
     """De-skew the segmented cloud AND the outlier grid into the scan-END
-    frame with the carried previous twist (lidar-only branch of the JAX
-    package's _pre_deskew); rel_time becomes 1."""
-    if not config.odom.deskew:
+    frame, once per scan (the adjustDistortion slot, fA.cpp:491-619);
+    rel_time becomes 1.
+
+    Lidar-only: constant-twist prediction from the carried previous twist
+    (``odometry.deskew_with_twist``).  With the IMU enabled and more than
+    one sample buffered: ``imu.deskew_to_end``, chosen on the device."""
+    cfg = config
+    use_ct = cfg.odom.deskew
+    use_imu = cfg.imu.enabled and cfg.imu.deskew
+    if not (use_ct or use_imu):
         return fo
     xi0 = odo_state.motion
+    if use_imu:
+        imu_ok = imu_buf.count > 1
+        v_world = (odo_state.pose[:3, :3] @ odo_state.motion[3:]) \
+            / cfg.lidar.scan_period
 
     def ds(grid_xyz, grid_rel, grid_valid):
-        pts = odometry.deskew_with_twist(xi0, grid_xyz.reshape(-1, 3),
-                                         grid_rel.reshape(-1))
+        flat = grid_xyz.reshape(-1, 3)
+        rel = grid_rel.reshape(-1)
+        pts = odometry.deskew_with_twist(xi0, flat, rel) if use_ct else flat
+        if use_imu:
+            pts_imu = imu_mod.deskew_to_end(
+                imu_buf, flat, rel, t, cfg.lidar.scan_period, v_world)
+            pts = torch.where(imu_ok, pts_imu, pts)
         xyz = pts.reshape(grid_xyz.shape)
         return (torch.where(grid_valid[..., None], xyz, 0.0),
                 grid_valid.to(grid_rel.dtype))
@@ -77,6 +100,7 @@ class PerceptionState(NamedTuple):
     """Device state of the every-scan path."""
 
     odo: odometry.OdometryState
+    imu: imu_mod.ImuBuffer
     traj: torch.Tensor         # (max_scans, 4, 4) fused poses
     odom_traj: torch.Tensor    # (max_scans, 4, 4) raw odometry poses
     traj_t: torch.Tensor       # (max_scans,)
@@ -101,6 +125,7 @@ def init_perception_state(config: PipelineConfig, device) -> PerceptionState:
     n = config.cap.max_scans
     return PerceptionState(
         odo=odometry.init_state(config, device),
+        imu=imu_mod.init_buffer(config.imu.que_len, device),
         traj=torch.eye(4, device=device).repeat(n, 1, 1),
         odom_traj=torch.eye(4, device=device).repeat(n, 1, 1),
         traj_t=torch.zeros(n, device=device),
@@ -126,9 +151,21 @@ def perception_step(config: PipelineConfig, state: PerceptionState,
     Returns (state, odom_pose, out_pts, out_mask, fused_pose)."""
     cfg = config
     fo = frontend.run(cfg, points, mask)
-    fo = _pre_deskew(cfg, fo, state.odo)
+    fo = _pre_deskew(cfg, fo, state.odo, state.imu, t)
     fs, out_pts, out_mask = _extract(cfg, fo.cloud, fo.outlier)
-    odo, odom_pose, _ = odometry.step(cfg, state.odo, fs)
+    if cfg.imu.enabled and cfg.imu.prior:
+        # IMU initial guess (updateInitialGuess, fA.cpp:1639-1664): the
+        # orientation delta is trusted (attitude is drift-bounded); the
+        # dead-reckoned translation depends on an unobservable initial
+        # velocity, so translation keeps the constant-velocity prior.
+        xi_imu = imu_mod.motion_prior(state.imu, t, t + cfg.lidar.scan_period)
+        ok = (state.imu.count > 1) & torch.isfinite(xi_imu).all()
+        xi_prior = torch.where(
+            ok, torch.cat([xi_imu[:3], state.odo.motion[3:]]),
+            state.odo.motion)
+    else:
+        xi_prior = None
+    odo, odom_pose, _ = odometry.step(cfg, state.odo, fs, xi_prior)
 
     # High-rate fusion (transformFusion.cpp:94-179) with the latest mapping
     # correction (one mapping tick stale, as in the reference).
@@ -144,9 +181,10 @@ def perception_step(config: PipelineConfig, state: PerceptionState,
 
 def mapping_step(config: PipelineConfig, mst: MapperState,
                  corner_xyz, corner_mask, surf_xyz, surf_mask,
-                 out_pts, out_mask, odom_pose, points, mask, t):
+                 out_pts, out_mask, odom_pose, points, mask, t, imu_buf=None):
     """One mapping tick (reference run(), mO.cpp:1673-1708): submap ->
-    scan-to-map LM -> correction -> guarded keyframe insert."""
+    scan-to-map LM -> correction -> guarded keyframe insert.  ``imu_buf``
+    is read only with ``imu.enabled``."""
     cfg = config
     sub_c, sub_cm, sub_s, sub_sm = mapping.build_submap(cfg, mst.kf)
     c, cm, s, sm, o, om = mapping.downsample_scan(
@@ -156,6 +194,14 @@ def mapping_step(config: PipelineConfig, mst: MapperState,
     pose = mapping.scan_to_map(cfg, T_guess, c, cm, torch.cat([s, o]),
                                torch.cat([sm, om]), sub_c, sub_cm, sub_s,
                                sub_sm)
+    if cfg.imu.enabled:
+        # transformUpdate (mO.cpp:484-517): blend a sliver of the IMU
+        # roll/pitch into the mapped pose to bound long-horizon tilt drift.
+        rpy_i = imu_mod.rpy_at(imu_buf, t)
+        p6 = se3.mat_to_pose6(pose)
+        b = cfg.imu.blend
+        p6b = torch.cat([(1 - b) * p6[:2] + b * rpy_i[:2], p6[2:]])
+        pose = torch.where(imu_buf.count > 1, se3.pose6_to_mat(p6b), pose)
     correction = pose @ se3.mat_inv(odom_pose)
 
     should = mapping.should_insert_keyframe(cfg, mst.last_kf_pose, pose)
@@ -191,38 +237,126 @@ def loop_step(config: PipelineConfig, mst: MapperState) -> MapperState:
         loops_closed=mst.loops_closed + closed.to(torch.int32))
 
 
-class SlamEngine:
-    """Single-sequence SLAM with or without loop closure, IMU off
-    (BASELINE.json configs 1-3).  ``device`` is explicit (``"cuda"`` on the
-    card, ``"cpu"`` for the plain versions of the kernels).
-    ``process_scan`` reads a device value only inside a loop tick;
-    ``trajectory_array()`` fetches the run once."""
+def _own(state, device):
+    """A copy of a state tuple (or tensor) with every leaf its own tensor
+    on ``device``: the engine writes its banks in place."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().to(device, copy=True)
+    return type(state)(*(_own(leaf, device) for leaf in state))
 
-    def __init__(self, config: PipelineConfig, device):
-        if config.imu.enabled:
-            raise NotImplementedError(
-                "the IMU path is not ported yet: set imu.enabled=False")
+
+class SlamEngine:
+    """Single-sequence SLAM (BASELINE.json configs 1-3), with or without
+    loop closure and IMU.  ``device`` is ``"cuda"`` unless the caller asks
+    for ``"cpu"`` (the plain versions of the kernels); without a card the
+    default raises.  ``process_scan`` reads a device value only inside a
+    loop tick (and in the LM loops' ``eigh``); ``trajectory_array()``
+    fetches the run once."""
+
+    # Fixed pad so that every per-scan IMU batch has one shape.
+    IMU_BATCH_PAD = 32
+
+    def __init__(self, config: PipelineConfig, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "SlamEngine(device='cuda'): no CUDA device; pass "
+                "device='cpu' to run the plain versions")
         # fp32 everywhere, as the JAX entry points' "highest" precision.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
-        self.device = torch.device(device)
         self.p = init_perception_state(config, self.device)
         self.m = init_mapper_state(config, self.device)
         self.last_map_time = -1e9
         self.map_ticks = 0
         self.loop_ticks = 0
+        self.timer = StageTimer()
         self._scans_fed = 0
         self._warned_kf_cap = False
         self._warned_loop_cap = False
+
+    # Views of the device state for export, checkpoint and tests; the
+    # setters copy what they are given onto the engine's device.
+
+    @property
+    def odo(self) -> odometry.OdometryState:
+        return self.p.odo
+
+    @odo.setter
+    def odo(self, v):
+        self.p = self.p._replace(odo=_own(v, self.device))
+
+    @property
+    def map(self) -> mapping.MapState:
+        return mapping.MapState(
+            kf=self.m.kf, correction=self.m.correction, pose=self.m.pose,
+            last_kf_pose=self.m.last_kf_pose)
+
+    @map.setter
+    def map(self, v: mapping.MapState):
+        v = _own(v, self.device)
+        self.m = self.m._replace(kf=v.kf, correction=v.correction,
+                                 pose=v.pose, last_kf_pose=v.last_kf_pose)
+
+    @property
+    def bank(self) -> scan_context.DescriptorBank:
+        return self.m.bank
+
+    @bank.setter
+    def bank(self, v):
+        self.m = self.m._replace(bank=_own(v, self.device))
 
     @property
     def loops(self) -> posegraph.LoopFactors:
         return self.m.loops
 
+    @loops.setter
+    def loops(self, v):
+        self.m = self.m._replace(loops=_own(v, self.device))
+
     @property
     def loops_closed(self) -> torch.Tensor:
         return self.m.loops_closed
+
+    def _upload(self, rows: np.ndarray) -> torch.Tensor:
+        """A small host array onto the engine's device without a host sync:
+        through a pinned staging tensor of its own (the caching host
+        allocator keeps it alive until the copy has run)."""
+        src = torch.from_numpy(rows)
+        if self.device.type != "cuda":
+            return src
+        staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        staged.copy_(src)
+        return staged.to(self.device, non_blocking=True)
+
+    def push_imu(self, t: float, rpy, acc, gyro):
+        """Feed one IMU sample (imuHandler, fA.cpp:431-489): world-frame
+        roll/pitch/yaw, body linear acceleration (m/s^2, gravity included),
+        body angular rate (rad/s).  Push all samples with timestamps up to
+        a scan's end before feeding that scan."""
+        row = self._upload(np.concatenate(
+            [[t], rpy, acc, gyro]).astype(np.float32))
+        self.p = self.p._replace(imu=imu_mod.push(
+            self.p.imu, row[0], row[1:4], row[4:7], row[7:10]))
+
+    def push_imu_batch(self, times, rpy, acc, gyro):
+        """Feed up to IMU_BATCH_PAD samples in one padded batch (one upload
+        and one ``imu.push_many``, whose launch count does not depend on
+        the number of samples)."""
+        m = len(times)
+        P = self.IMU_BATCH_PAD
+        assert m <= P, f"feed at most {P} samples per call, got {m}"
+        rows = np.zeros((P, 11), np.float32)
+        rows[:m, 0] = times
+        rows[:m, 1:4] = rpy
+        rows[:m, 4:7] = acc
+        rows[:m, 7:10] = gyro
+        rows[:m, 10] = 1.0
+        rows = self._upload(rows)
+        self.p = self.p._replace(imu=imu_mod.push_many(
+            self.p.imu, rows[:, 0], rows[:, 1:4], rows[:, 4:7], rows[:, 7:10],
+            rows[:, 10] > 0.5))
 
     def process_scan(self, points, mask, t: float):
         """Feed one scan (padded (N,3) + mask, numpy or tensors).  Returns
@@ -241,22 +375,25 @@ class SlamEngine:
                 "later poses overwrite the last slot; raise "
                 "CapacityConfig.max_scans", RuntimeWarning)
 
-        self.p, odom_pose, out_pts, out_mask, fused = perception_step(
-            cfg, self.p, self.m.correction, points, mask, t_dev)
+        with self.timer.stage("perception"):
+            self.p, odom_pose, out_pts, out_mask, fused = perception_step(
+                cfg, self.p, self.m.correction, points, mask, t_dev)
 
         if t - self.last_map_time >= cfg.mapping.process_interval:
             self.last_map_time = t
             odo = self.p.odo
-            self.m = mapping_step(
-                cfg, self.m, odo.corner_last.xyz, odo.corner_last.mask,
-                odo.surf_last.xyz, odo.surf_last.mask, out_pts, out_mask,
-                odom_pose, points, mask, t_dev)
+            with self.timer.stage("mapping"):
+                self.m = mapping_step(
+                    cfg, self.m, odo.corner_last.xyz, odo.corner_last.mask,
+                    odo.surf_last.xyz, odo.surf_last.mask, out_pts, out_mask,
+                    odom_pose, points, mask, t_dev, self.p.imu)
             self.map_ticks += 1
             # Loop-closure cadence: every Nth mapping tick (the reference's
             # 1 Hz thread vs its ~3.3 Hz mapping = every ~3rd tick).
             if cfg.loop.enabled and \
                     self.map_ticks % cfg.loop.check_every_ticks == 0:
-                self.m = loop_step(cfg, self.m)
+                with self.timer.stage("loop"):
+                    self.m = loop_step(cfg, self.m)
                 self.loop_ticks += 1
         if not (self._warned_kf_cap and self._warned_loop_cap):
             self._check_caps_host_bound()

@@ -4,9 +4,9 @@
 ``PerceptionState`` / ``MapperState`` with every leaf already a numpy array
 (``jax.tree.map(np.asarray, state)``: this module never sees jax) and
 return the port's state on ``device``.  Fields are matched by name (the
-loop-factor bank and ``loops_closed`` come across with the rest), so the
-one part the port does not carry, the IMU buffer, is dropped.  With it, one
-step of both packages can run from the same mid-run state.
+IMU buffer, the loop-factor bank and ``loops_closed`` come across with the
+rest).  With it, one step of both packages can run from the same mid-run
+state; ``utils/export.py`` carries state across by file.
 """
 
 from __future__ import annotations

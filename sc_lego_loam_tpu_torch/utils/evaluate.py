@@ -36,6 +36,26 @@ def ate_rmse(est: np.ndarray, gt: np.ndarray, align: bool = True) -> float:
     return float(np.sqrt((err ** 2).mean()))
 
 
+def rpe(est: np.ndarray, gt: np.ndarray, delta: int = 1):
+    """Relative pose error over ``delta``-frame intervals.
+    Returns (trans_rmse, rot_rmse_rad)."""
+    terr, rerr = [], []
+    for i in range(len(est) - delta):
+        T_e = np.linalg.inv(est[i]) @ est[i + delta]
+        T_g = np.linalg.inv(gt[i]) @ gt[i + delta]
+        E = np.linalg.inv(T_g) @ T_e
+        terr.append(np.linalg.norm(E[:3, 3]))
+        c = np.clip((np.trace(E[:3, :3]) - 1) / 2, -1, 1)
+        rerr.append(np.arccos(c))
+    return float(np.sqrt(np.mean(np.square(terr)))), \
+        float(np.sqrt(np.mean(np.square(rerr))))
+
+
+def trajectory_length(gt: np.ndarray) -> float:
+    p = gt[:, :3, 3]
+    return float(np.linalg.norm(np.diff(p, axis=0), axis=1).sum())
+
+
 def revisit_mask(gt: np.ndarray, radius: float, min_gap: float = 20.0):
     """Per-scan bool: true position within ``radius`` of a trajectory
     segment at least ``min_gap`` SECONDS older (a fixed ground-truth

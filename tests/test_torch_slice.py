@@ -152,21 +152,34 @@ def test_engines_track_alike(runs):
 
 
 def test_engine_refuses_unported_paths():
+    """No configuration that the JAX package's ``SlamEngine(cfg)`` accepts
+    raises ``NotImplementedError`` any more: the IMU and the two-stage
+    odometry run.  What is refused is the default device without a card."""
     cfg = tiny_test_config()                 # loop closure on by default
-    tp.SlamEngine(cfg, device="cpu")         # ... and accepted
-    with pytest.raises(NotImplementedError, match="IMU"):
-        tp.SlamEngine(cfg.replace(imu=ImuConfig(enabled=True)), device="cpu")
+    n = cfg.lidar.max_points
     two_stage = cfg.replace(odom=dataclasses.replace(cfg.odom,
                                                      joint_6dof=False))
-    n = cfg.lidar.max_points
-    with pytest.raises(NotImplementedError, match="joint_6dof"):
-        tp.SlamEngine(two_stage, device="cpu").process_scan(
-            np.zeros((n, 3), np.float32), np.zeros(n, bool), t=0.0)
+    for c in (cfg, cfg.replace(imu=ImuConfig(enabled=True)), two_stage):
+        engine = tp.SlamEngine(c, device="cpu")
+        if c.imu.enabled:
+            engine.push_imu(0.0, np.zeros(3), np.float32([0, 0, 9.81]),
+                            np.zeros(3))
+        pose = engine.process_scan(np.zeros((n, 3), np.float32),
+                                   np.zeros(n, bool), t=0.0)
+        assert torch.isfinite(pose).all()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.SlamEngine(cfg)               # device defaults to "cuda"
+    with pytest.raises(AssertionError, match="at most 32"):
+        tp.SlamEngine(cfg, device="cpu").push_imu_batch(
+            np.zeros(33), np.zeros((33, 3)), np.zeros((33, 3)),
+            np.zeros((33, 3)))
 
 
 def test_port_imports_no_jax():
     """In a fresh interpreter: import every module of the port, build the
-    engine with loop closure on and feed it a scan.  Neither jax nor the
+    engine with loop closure and IMU on, feed it IMU samples and a scan,
+    gather a checkpoint, build the native loader.  Neither jax nor the
     JAX package (nor a submodule of either) gets imported."""
     code = """
 import importlib, pkgutil, sys
@@ -175,14 +188,23 @@ import sc_lego_loam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 25, names
-from sc_lego_loam_tpu_torch.config import tiny_test_config
+assert len(names) >= 33, names
+for name in ('imu', 'runner', 'utils.profiling', 'utils.mulran',
+             'utils.native_io', 'utils.export', 'tools.run_synthetic',
+             'tools.run_mulran'):
+    assert 'sc_lego_loam_tpu_torch.' + name in names, name
+from sc_lego_loam_tpu_torch.config import ImuConfig, tiny_test_config
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
-cfg = tiny_test_config()
+from sc_lego_loam_tpu_torch.utils import export, native_io
+cfg = tiny_test_config().replace(imu=ImuConfig(enabled=True))
 assert cfg.loop.enabled
 engine = SlamEngine(cfg, device='cpu')
 n = cfg.lidar.max_points
+engine.push_imu_batch(np.float32([0.0, 0.01]), np.zeros((2, 3)),
+                      np.zeros((2, 3)), np.zeros((2, 3)))
 engine.process_scan(np.zeros((n, 3), np.float32), np.zeros(n, bool), t=0.0)
+export.checkpoint_arrays(engine)
+native_io.available()
 bad = sorted(m for m in sys.modules
              if m in ('jax', 'jaxlib', 'sc_lego_loam_tpu')
              or m.startswith(('jax.', 'jaxlib.', 'sc_lego_loam_tpu.')))
