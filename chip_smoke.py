@@ -47,6 +47,21 @@ Phases, each printing its own lines:
    surf features at its pose; k=1 on phase 9's keyframe cloud and history
    submap.
 
+The multi-sequence batch (``parallel/batch.py``) adds, in their places:
+the kernel's batch axis in phase 4 (B items in one call against B single
+calls, equal in every slot, and against the plain version: B=3 at the
+scan-to-map shapes and the ICP's, B=8 at the ICP's with an item of no valid
+target; timed beside B single calls); after phase 7 the BATCH PATH,
+``BatchEngine(default_config(), n_seq=3)`` over three 240-scan windows
+(scans 0, 40, 80) of a 320-scan skewed figure-8 over 1.6 laps (each
+window drives its first 48 scans again), with loop closure on
+(aggregate sequence-scans/s beside the loop path's, per-sequence ATE, loops
+and factors, syncs by place, functorch per-sample fallbacks by stage), and
+the MERGE (``find_cross_loops`` + ``verify_cross_loops`` for pairs (0, 1)
+and (0, 2), ``anchor_sequence``, one ``merge_solve`` of the three chains,
+placement errors against ground truth); after phase 10 the kernel launches
+of one batched step beside the single-sequence functions'.
+
 ``--drive cloverleaf`` swaps the figure-8 for the bench's loop precision /
 recall drive (520 scans, four petals through one centre, three revisit
 events): the same phases and checks over a path that accepts many factors.
@@ -154,14 +169,11 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(name, k, q, t, mask, qcnt, max_sq, card):
-    """Kernel against the plain version on one set of tensors on the card.
+def compare_to_plain(idx_t, sqd_t, q, t, mask, qcnt, k, max_sq):
+    """The kernel's outputs against the plain version on the same tensors.
     Indices must agree in every slot whose distance is not tied (within
-    TIE_REL) with a neighbouring slot's."""
-    Q, T = q.shape[0], t.shape[0]
-    prep = cuda_knn.prepare_targets(t, mask)
-    plan, cfg = cuda_knn.plan(k, Q, T, q.device), cuda_knn.kernel_config(k)
-    idx_t, sqd_t = cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt)
+    TIE_REL) with a neighbouring slot's.  Returns (index mismatches, max
+    |dsqd|, rows past qcnt empty, slots compared, slots in all)."""
     ref_idx, ref_sqd = plain_knn.knn(q, t, mask, k + 1, max_sq, qcnt)
     torch.cuda.synchronize()
     idx, sqd = idx_t.cpu().numpy(), sqd_t.cpu().numpy()
@@ -179,18 +191,37 @@ def kernel_vs_plain(name, k, q, t, mask, qcnt, max_sq, card):
     tied |= (np.abs(edge - max_sq) <= gap[:, :k]) & (edge != max_sq)
     compared = ~tied
     mismatch = int((idx[compared] != ref_idx[:, :k][compared]).sum())
-    live, tcnt = int(qcnt.item()), int(prep.cnt.item())
+    live = int(qcnt.item())
     dead_ok = bool((idx[live:] == 0).all() and (sqd[live:] == max_sq).all())
+    return mismatch, err, dead_ok, int(compared.sum()), compared.size
 
-    # The least time the card could take for this call: the live pairs'
-    # arithmetic at the fp32 peak, or every input read once (queries, the
-    # 16-byte target records, the slot -> index map, the two counts) and
-    # every output written once (int64 index and fp32 distance per slot).
+
+def knn_bound(Q, T, k, live, tcnt):
+    """The least time the card could take for one call: the live pairs'
+    arithmetic at the fp32 peak, or every input read once (queries, the
+    16-byte target records, the slot -> index map, the two counts) and
+    every output written once (int64 index and fp32 distance per slot).
+    Returns (bound ms, what binds, ops ms, bytes ms, pairs, bytes)."""
     pairs = live * tcnt
     moved = Q * 12 + T * 16 + T * 8 + 8 + Q * k * 12
     ops_ms = 1e3 * pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS
     bytes_ms = 1e3 * moved / PEAK_BYTES_PER_S
     bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    return bound_ms, bound_by, ops_ms, bytes_ms, pairs, moved
+
+
+def kernel_vs_plain(name, k, q, t, mask, qcnt, max_sq, card):
+    """Kernel against the plain version on one set of tensors on the card
+    (``compare_to_plain``), timed beside its bound."""
+    Q, T = q.shape[0], t.shape[0]
+    prep = cuda_knn.prepare_targets(t, mask)
+    plan, cfg = cuda_knn.plan(k, Q, T, q.device), cuda_knn.kernel_config(k)
+    idx_t, sqd_t = cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt)
+    mismatch, err, dead_ok, n_compared, n_slots = compare_to_plain(
+        idx_t, sqd_t, q, t, mask, qcnt, k, max_sq)
+    live, tcnt = int(qcnt.item()), int(prep.cnt.item())
+    bound_ms, bound_by, ops_ms, bytes_ms, pairs, moved = knn_bound(
+        Q, T, k, live, tcnt)
 
     kern = lambda: cuda_knn.knn_prepared(q, prep, k, max_sq, qcnt)  # noqa: E731
     plain = lambda: plain_knn.knn(q, t, mask, k, max_sq, qcnt)     # noqa: E731
@@ -210,7 +241,7 @@ def kernel_vs_plain(name, k, q, t, mask, qcnt, max_sq, card):
           f"splits={plan.splits} R={cfg.R} U={cfg.U} threads={cfg.threads} "
           f"queue={cfg.queue} tile={cfg.tile} stages={cfg.stages} "
           f"blocks={plan.blocks} device_kernels_per_call={plan.kernels} "
-          f"compared_slots={int(compared.sum())}/{compared.size} "
+          f"compared_slots={n_compared}/{n_slots} "
           f"idx_mismatch={mismatch} max_abs_err={err:.3e} "
           f"(atol {SQD_ATOL}) rows>=qcnt_empty={dead_ok} "
           f"ms={ms:.4f} (device, graph of {GRAPH_CALLS} calls) "
@@ -881,6 +912,484 @@ def prepare_targets_times(card):
               f"(bytes) bound_share={bound_ms / ms:.4f} [{card}]", flush=True)
 
 
+# (name, k, queries, targets, max_sq_dist, items): the batch axis at the
+# shapes a BatchEngine of three sequences gives the kernel (scan-to-map),
+# and the ICP at three sequences and at the 8 pairs of verify_cross_loops.
+BATCH_SHAPES = [
+    ("s2m_surf_k5", 5, 12288, 65536, 4.0, 3),
+    ("s2m_corner_k5", 5, 2048, 16384, 4.0, 3),
+    ("icp_k1", 1, 8192, 32768, 64.0, 3),
+    ("icp_k1", 1, 8192, 32768, 64.0, 8),
+]
+
+
+def batched_kernel_checks(card):
+    """The kernel's batch axis: B items in one call against B single calls
+    (equal in every slot) and against the plain version item by item; the
+    B=8 batch holds one item with no valid target.  Timed as a replayed
+    CUDA graph beside B single calls in one graph, with the bound the sum
+    of the items' single bounds."""
+    out = {}
+    for seed, (name, k, Q, T, max_sq, B) in enumerate(BATCH_SHAPES):
+        items = [uniform_cloud(100 * seed + b, Q, T) for b in range(B)]
+        if B == 8:
+            q1, t1, m1, c1 = items[1]
+            items[1] = (q1, t1, torch.zeros_like(m1), c1)
+        preps = [cuda_knn.prepare_targets(t, m) for _, t, m, _ in items]
+        q_b = torch.stack([it[0] for it in items])
+        qcnt_b = torch.cat([it[3] for it in items])
+        tgt_b = torch.stack([p.tgt for p in preps])
+        perm_b = torch.stack([p.perm for p in preps])
+        cnt_b = torch.cat([p.cnt for p in preps])
+        batched = lambda: cuda_knn.knn_op(  # noqa: E731
+            q_b, tgt_b, perm_b, cnt_b, qcnt_b, k, max_sq, -1)
+        singles = lambda: [cuda_knn.knn_prepared(  # noqa: E731
+            it[0], pr, k, max_sq, it[3]) for it, pr in zip(items, preps)]
+        idx, sqd = batched()
+        ones = singles()
+        torch.cuda.synchronize()
+        equal = all(torch.equal(idx[b], i) and torch.equal(sqd[b], d)
+                    for b, (i, d) in enumerate(ones))
+        mismatch, err, dead_ok = 0, 0.0, True
+        bound = 0.0
+        for b, (q, t, m, qcnt) in enumerate(items):
+            mm, e, dok, _, _ = compare_to_plain(idx[b], sqd[b], q, t, m, qcnt,
+                                                k, max_sq)
+            mismatch, err, dead_ok = mismatch + mm, max(err, e), dead_ok & dok
+            bound += knn_bound(Q, T, k, int(qcnt.item()),
+                               int(preps[b].cnt.item()))[0]
+        empty_ok = B != 8 or bool((idx[1] == 0).all()
+                                  and (sqd[1] == max_sq).all())
+        ms = graph_ms(batched, GRAPH_CALLS)
+        single_ms = graph_ms(singles, GRAPH_CALLS)
+        plan = cuda_knn.plan(k, Q, T, "cuda", items=B)
+        label = f"{name}_B{B}"
+        print(f"batched kernel {label}: k={k} B={B} Q={Q} T={T} "
+              f"splits={plan.splits} blocks={plan.blocks} (single call: "
+              f"splits={cuda_knn.plan(k, Q, T, 'cuda').splits}) "
+              f"equal_to_{B}_single_calls_in_every_slot={equal} "
+              f"idx_mismatch_vs_plain={mismatch} max_abs_err={err:.3e} "
+              f"rows>=qcnt_empty={dead_ok} item_without_targets_empty="
+              f"{empty_ok} ms={ms:.4f} (device, graph of {GRAPH_CALLS} "
+              f"batched calls) {B}_single_calls_ms={single_ms:.4f} "
+              f"ratio={ms / single_ms:.3f} bound_ms={bound:.5f} (the sum of "
+              f"the items' single bounds) bound_share={bound / ms:.4f} "
+              f"[{card}]", flush=True)
+        check(equal, f"{label}: the batch differs from {B} single calls")
+        check(mismatch == 0 and err <= SQD_ATOL and dead_ok and empty_ok,
+              f"{label}: the batch differs from the plain version")
+        out[label] = dict(ms=ms, single_ms=single_ms, bound_ms=bound)
+    return out
+
+
+BATCH_SCANS = 320         # the drive the three windows are cut from
+BATCH_WINDOW = 240
+BATCH_STARTS = (0, 40, 80)
+BATCH_LAPS = 1.6          # 1.2 laps a window: each revisits its first 0.2
+# The merge's gates.  Placement of sequences 1 and 2 in sequence 0's start
+# frame: the mean below MERGE_MEAN_M and MERGE_RATIO x the unmerged error.
+# That error holds sequence 0's own drift in its start frame, which is
+# bounded apart; the merged map rigidly aligned to ground truth shows how
+# well the chains sit on each other, apart from that drift.
+MERGE_MEAN_M = 1.0
+MERGE_RATIO = 0.2
+MERGE_SEQ0_MEAN_M = 1.0
+MERGE_ALIGNED_MEAN_M = 0.5
+MERGE_ALIGNED_MAX_M = 1.5
+
+
+def make_batch_drive(cfg, card):
+    """The batch cell's drive: 320 scans of a skewed figure-8 over 1.6
+    laps, noise 0.01, seed 11, capture order; rays cast in worker
+    processes.  A 240-scan window covers 1.2 laps, so every window drives
+    its first 48 scans' course again at its end (~13 keyframes, four loop
+    checks).  At the headline drive's 1.05 laps a window, the revisit is
+    12 scans long and the window from scan 80 closed no loop, in the batch
+    nor in one SlamEngine; this drive is 14 % faster a scan than the
+    headline's."""
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    scans, valids, gt = synthetic.make_sequence(
+        cfg.lidar, BATCH_SCANS, trajectory="figure8", radius=30.0,
+        loops=BATCH_LAPS, noise=0.01, seed=11, shuffle=False, skew=True,
+        workers=workers)
+    print(f"data: batch drive, {BATCH_SCANS} scans (figure-8, radius 30 m, "
+          f"{BATCH_LAPS} laps), windows of {BATCH_WINDOW} from scans "
+          f"{BATCH_STARTS}, host generation {time.perf_counter() - t0:.2f} s "
+          f"in {workers} processes [{card}]", flush=True)
+    return scans, valids, gt
+
+
+def _seq(state, s):
+    """Sequence s of a leading-S state tuple (views)."""
+    if isinstance(state, torch.Tensor):
+        return state[s]
+    return type(state)(*(_seq(leaf, s) for leaf in state))
+
+
+def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
+    """``BatchEngine(cfg, n_seq=3)`` on the card over three 240-scan windows
+    of the batch drive, loop closure on; then the cross-sequence merge.
+    ``single`` is the loop path's summary in this call.  Returns (kNN
+    launches of the drive, the engine, what the merge needs)."""
+    from sc_lego_loam_tpu_torch.parallel import batch as pbatch
+
+    S, n = len(BATCH_STARTS), BATCH_WINDOW
+    window = torch.tensor(BATCH_STARTS, device="cuda")
+    gts = [gt_all[s0:s0 + n] for s0 in BATCH_STARTS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    engine = pbatch.BatchEngine(cfg, n_seq=S)
+    check(engine.device.type == "cuda", "the default device is not the card")
+    cuda_knn.reset_launches()
+
+    rec: list = []
+    spans = {name: [] for name in ("perception", "mapping", "descriptors",
+                                   "loop")}
+    ticks = []
+
+    def watch(attr, name):
+        inner = getattr(engine, attr)
+
+        def watched(*a, **kw):
+            n0, k1 = len(rec), cuda_knn.launches[1]
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            h0 = time.perf_counter()
+            out = inner(*a, **kw)
+            host_ms = 1e3 * (time.perf_counter() - h0)
+            ev1.record()
+            spans[name].append((n0, len(rec)))
+            if name == "loop":
+                ticks.append(dict(ev0=ev0, ev1=ev1, host_ms=host_ms,
+                                  k1=cuda_knn.launches[1] - k1,
+                                  w0=n0, w1=len(rec)))
+            return out
+        setattr(engine, attr, watched)
+
+    watch("_perception", "perception")
+    watch("_mapping", "mapping")
+    watch("_descriptors", "descriptors")
+    watch("_loop_tick", "loop")
+
+    def step(i):
+        engine.process_scans(pts_all[window + i], msk_all[window + i],
+                             t=i * 0.1)
+
+    with warnings.catch_warnings(record=True) as caught:
+        rec = caught
+        warnings.simplefilter("always")
+        for i in range(LOOP_WARMUP):
+            step(i)
+        torch.cuda.synchronize()
+        w_start = len(rec)
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        for i in range(LOOP_WARMUP, n):
+            step(i)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()          # the window's one final sync
+        wall = time.perf_counter() - t0
+    launches = dict(cuda_knn.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    # Functorch per-sample fallbacks (over the whole drive), by stage.
+    def fallbacks(name):
+        ids = set()
+        for a, b in spans[name]:
+            ids.update(range(a, b))
+        return sorted({str(rec[j].message).split(" because")[0][:200]
+                       for j in ids if "performance drop" in
+                       str(rec[j].message)})
+
+    drops = {name: fallbacks(name) for name in spans}
+    # Host syncs of the timed window: inside loop ticks, and elsewhere.
+    in_tick = set()
+    for a, b in spans["loop"]:
+        in_tick.update(range(max(a, w_start), b))
+    timed_rec = list(enumerate(rec))[w_start:]
+    syncs = [(j, w) for j, w in timed_rec if "synchroniz" in str(w.message)]
+    loop_syncs = [w for j, w in syncs if j in in_tick]
+    other_syncs = [w for j, w in syncs if j not in in_tick]
+
+    timed = n - LOOP_WARMUP
+    steps_per_s = timed / wall
+    seq_fps = S * steps_per_s
+    traj = engine.trajectory_array()
+    kf_n = engine.map.kf.count.tolist()
+    closed = engine.loops_closed.tolist()
+    print(f"batch path (BatchEngine, default_config, 3 sequences, loop "
+          f"closure on): windows={BATCH_STARTS} scans={n} warmup="
+          f"{LOOP_WARMUP} batched_steps_per_s={steps_per_s:.3f} "
+          f"sequence_scans_per_s={seq_fps:.3f} (single SlamEngine loop path "
+          f"in this call: {single['scans_per_s']:.3f} scans/s; ratio "
+          f"{seq_fps / single['scans_per_s']:.3f}) peak_mem_bytes={peak} "
+          f"(of which {held} held before the path began) keyframes={kf_n} "
+          f"mapping_ticks={engine._map_ticks} loop_ticks={engine.loop_ticks} "
+          f"knn_launches_k5={launches[5]} knn_launches_k1={launches[1]} "
+          f"loops_closed={closed} [{card}]", flush=True)
+    stages = engine.timer.summary(skip_first=LOOP_WARMUP)
+    print("batch path stages, host ms to launch (mean): " + " ".join(
+        f"{name}={1e3 * st['mean']:.2f} (n={st['n']})"
+        for name, st in sorted(stages.items())) + f" [{card}]", flush=True)
+    for t in ticks:
+        t["ms"] = t["ev0"].elapsed_time(t["ev1"])
+        t["syncs"] = sum(1 for j in range(t["w0"], t["w1"])
+                         if "synchroniz" in str(rec[j].message))
+    verified = [t for t in ticks if t["k1"] > 0]
+    idle = [t for t in ticks if t["k1"] == 0]
+    for name, group in (("with a verification", verified),
+                        ("no candidate", idle)):
+        ms = [t["ms"] for t in group]
+        print(f"batch path loop ticks {name}: n={len(group)} mean_ms_cuda_"
+              f"events={np.mean(ms) if ms else float('nan'):.3f} "
+              f"max_ms_host={max([t['host_ms'] for t in group], default=0):.3f}"
+              f" mean_host_syncs="
+              f"{np.mean([t['syncs'] for t in group]) if group else 0:.2f} "
+              f"mean_k1_launches="
+              f"{np.mean([t['k1'] for t in group]) if group else 0:.2f} "
+              f"[{card}]", flush=True)
+    print(f"batch path host syncs in the {timed} timed steps: loop_ticks="
+          f"{len(loop_syncs)} elsewhere={len(other_syncs)} ("
+          f"{len(other_syncs) / timed:.2f} a step; the single loop path: "
+          f"{single['syncs_elsewhere'] / (len(gt_all[:240]) - LOOP_WARMUP):.2f}"
+          f" a scan) [{card}]", flush=True)
+    print_syncs("batch loop tick", loop_syncs)
+    print_syncs("batch elsewhere", other_syncs)
+    for name, found in drops.items():
+        print(f"batch path functorch per-sample fallbacks in {name}: "
+              f"{len(found)} {found} [{card}]", flush=True)
+
+    ates, prs = [], []
+    for s in range(S):
+        kf = _seq(engine.map.kf, s)
+        ate = evaluate.ate_rmse(traj[s], gts[s])
+        k = kf_n[s]
+        kf_pos = kf.poses6[:k, 3:6].cpu().numpy()
+        at = np.clip(np.round(kf.times[:k].cpu().numpy() / 0.1).astype(int),
+                     0, n - 1)
+        kf_est = np.tile(np.eye(4), (k, 1, 1))
+        kf_est[:, :3, 3] = kf_pos
+        kf_est[:, :3, :3] = se3.pose6_to_mat(kf.poses6[:k])[:, :3, :3] \
+            .cpu().numpy()
+        ate_graph = evaluate.ate_rmse(kf_est, gts[s][at])
+        shim = type("Seq", (), {})()
+        shim.loops = _seq(engine.loops, s)
+        shim.m = type("M", (), {"kf": kf})()
+        pr = evaluate.loop_precision_recall(shim, gts[s], cfg,
+                                            tol_m=FACTOR_TOL_M)
+        ates.append((ate, ate_graph))
+        prs.append(pr)
+        print(f"batch sequence {s} (scans {BATCH_STARTS[s]}-"
+              f"{BATCH_STARTS[s] + n - 1}): ate_m={ate:.4f} (fused, as "
+              f"published) ate_keyframe_graph_m={ate_graph:.4f} keyframes={k} "
+              f"loops_closed={closed[s]} factors accepted={pr['accepted']} "
+              f"true={pr['true_factors']} precision={pr['precision']} "
+              f"recall={pr['recall']} [{card}]", flush=True)
+
+    check(traj.shape == (S, n, 4, 4) and bool(np.isfinite(traj).all()),
+          f"batch path: trajectories {traj.shape} not finite or misshapen")
+    for s in range(S):
+        check(ates[s][0] < ATE_BAR and ates[s][1] < ATE_BAR,
+              f"batch sequence {s}: ATE {ates[s]} >= {ATE_BAR} m")
+        check(closed[s] >= 1, f"batch sequence {s}: no loop closed")
+        check(prs[s]["accepted"] == 0 or prs[s]["precision"] == 1.0,
+              f"batch sequence {s}: accepted factors not all true: {prs[s]}")
+    check(launches[5] > 0 and launches[1] > 0,
+          f"batch path: a kNN instantiation never launched: {launches}")
+    check(launches[5] == expected_k5(cfg, engine._map_ticks),
+          f"batch path: k=5 calls {launches[5]}, expected one batched call "
+          f"per single-sequence call")
+    for name in ("perception", "mapping", "descriptors"):
+        check(not drops[name], f"batch path: functorch fallbacks in {name}: "
+              f"{drops[name]}")
+    stray = stray_syncs(other_syncs)
+    check(not stray, "batch path: a new sync outside the loop ticks: "
+          + ", ".join(sorted({where(w) for w in stray})))
+    summary = dict(seq_fps=seq_fps, steps_per_s=steps_per_s, peak=peak - held,
+                   ates=ates, drops=drops)
+    return launches, engine, summary
+
+
+def run_merge(cfg, engine, gt_all, card):
+    """The cross-sequence merge on the batch path's end state:
+    ``find_cross_loops`` and ``verify_cross_loops`` for pairs (0, 1) and
+    (0, 2), ``anchor_sequence`` of 1 and 2 from each one's best accepted
+    factor, one ``merge_solve`` of the three chains with the intra- and
+    cross-sequence factors in global ids.  Placement errors of sequences 1
+    and 2 against ground truth in sequence 0's start frame."""
+    from sc_lego_loam_tpu_torch.parallel import batch as pbatch
+
+    S, n = len(BATCH_STARTS), BATCH_WINDOW
+    K = cfg.cap.max_keyframes
+    kfs = [_seq(engine.map.kf, s) for s in range(S)]
+    banks = [_seq(engine.bank, s) for s in range(S)]
+    counts = engine.map.kf.count.tolist()
+
+    def world_gt(s, kf):
+        """World-frame ground truth of sequence s's keyframes."""
+        at = np.clip(np.round(kf.times[:counts[s]].cpu().numpy() / 0.1)
+                     .astype(int), 0, n - 1)
+        return gt_all[BATCH_STARTS[s] + at]
+
+    gt_kf = [world_gt(s, kfs[s]) for s in range(S)]
+    frame0 = np.linalg.inv(gt_all[BATCH_STARTS[0]])
+    li, lj, lz = [], [], []
+    for s in range(S):                    # intra-sequence factors
+        lo = _seq(engine.loops, s)
+        m = min(int(lo.count), lo.i.shape[0])
+        li += (s * K + lo.i[:m].long()).tolist()
+        lj += (s * K + lo.j[:m].long()).tolist()
+        lz += list(lo.z[:m].cpu().numpy())
+    n_intra = len(li)
+    poses6 = engine.map.kf.poses6.clone()
+    for s in (1, 2):
+        t0 = time.perf_counter()
+        ia, ib, dist, yaw, ok = pbatch.find_cross_loops(cfg, banks[0],
+                                                        banks[s])
+        Z, fit, acc = pbatch.verify_cross_loops(cfg, kfs[0], kfs[s], ia, ib,
+                                                yaw, ok)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        ia, ib = ia.cpu().numpy(), ib.cpu().numpy()
+        Zn, acc, fit = Z.cpu().numpy(), acc.cpu().numpy(), fit.cpu().numpy()
+        true = []
+        for p in range(len(ia)):
+            z_gt = np.linalg.inv(gt_kf[0][ia[p]]) @ gt_kf[s][ib[p]]
+            true.append(bool(np.linalg.norm(Zn[p][:3, 3] - z_gt[:3, 3])
+                             < FACTOR_TOL_M))
+        true = np.asarray(true)
+        print(f"merge pair (0, {s}): candidates={int(ok.sum())} of "
+              f"{len(ia)} (dist {dist.cpu().numpy().round(3).tolist()}) "
+              f"accepted={int(acc.sum())} true_among_accepted="
+              f"{int((acc & true).sum())} true_among_candidates="
+              f"{int((ok.cpu().numpy() & true).sum())} fitness="
+              f"{fit.round(3).tolist()} find+verify_s={took:.3f} [{card}]",
+              flush=True)
+        check(acc.sum() >= 1, f"merge pair (0, {s}): no cross factor")
+        check(bool(true[acc].all()), f"merge pair (0, {s}): a false cross "
+              f"factor was accepted")
+        for p in np.flatnonzero(acc):
+            li.append(int(ia[p]))
+            lj.append(s * K + int(ib[p]))
+            lz.append(Zn[p])
+        best = int(np.flatnonzero(acc)[np.argmin(fit[acc])])
+        poses6[s] = pbatch.anchor_sequence(
+            poses6[s], engine.map.kf.count[s], kfs[0].poses6[int(ia[best])],
+            Z[best], torch.tensor(int(ib[best]), device="cuda"))
+
+    L = cfg.posegraph.max_loops
+    check(len(li) <= L, f"merge: {len(li)} factors > {L} slots")
+    loops = posegraph.init_loops(cfg, "cuda")
+    m = len(li)
+    loops = posegraph.LoopFactors(
+        i=loops.i.index_copy(0, torch.arange(m, device="cuda"),
+                             torch.tensor(li, dtype=torch.int32,
+                                          device="cuda")),
+        j=loops.j.index_copy(0, torch.arange(m, device="cuda"),
+                             torch.tensor(lj, dtype=torch.int32,
+                                          device="cuda")),
+        z=loops.z.index_copy(0, torch.arange(m, device="cuda"),
+                             torch.from_numpy(np.stack(lz)).cuda()),
+        count=torch.full((), m, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged = pbatch.merge_solve(cfg, poses6, engine.map.kf.count,
+                                engine.map.kf.odom_z, loops)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+
+    def placement(p6, s, align=None):
+        """Keyframe position errors of sequence s in sequence 0's start
+        frame (after the rigid ``align`` (R, t) when given)."""
+        est = p6[s, :counts[s], 3:6].cpu().numpy().astype(np.float64)
+        if align is not None:
+            est = est @ align[0].T + align[1]
+        truth = (frame0[None] @ gt_kf[s])[:, :3, 3]
+        return np.linalg.norm(est - truth, axis=-1)
+
+    # The merged map as a whole, rigidly aligned to ground truth (what ATE
+    # does to one trajectory): how well the sequences sit on each other,
+    # apart from sequence 0's own drift in its start frame.
+    every = np.concatenate([merged[s, :counts[s], 3:6].cpu().numpy()
+                            for s in range(S)]).astype(np.float64)
+    truth = np.concatenate([(frame0[None] @ gt_kf[s])[:, :3, 3]
+                            for s in range(S)])
+    align = evaluate.umeyama_alignment(every, truth)
+    e0_u, e0_m = placement(engine.map.kf.poses6, 0), placement(merged, 0)
+    out = {}
+    for s in (1, 2):
+        e_m, e_u = placement(merged, s), placement(engine.map.kf.poses6, s)
+        e_a = placement(merged, s, align)
+        out[s] = (e_m.mean(), e_u.mean(), e_a.mean(), e_a.max())
+        print(f"merge sequence {s}: placement error in sequence 0's start "
+              f"frame, merged mean={e_m.mean():.4f} max={e_m.max():.4f} m, "
+              f"unmerged mean={e_u.mean():.4f} max={e_u.max():.4f} m; the "
+              f"merged map rigidly aligned to ground truth: mean="
+              f"{e_a.mean():.4f} max={e_a.max():.4f} m [{card}]", flush=True)
+    print(f"merge_solve: {S} chains, {sum(counts)} keyframes of {S * K} "
+          f"nodes, {m} factors (in all, {n_intra} of them intra-sequence), "
+          f"seconds={solve_s:.3f}; sequence 0 in its own start frame: mean "
+          f"error {e0_u.mean():.4f} m before the merge, {e0_m.mean():.4f} m "
+          f"after, {placement(merged, 0, align).mean():.4f} m aligned "
+          f"[{card}]", flush=True)
+    e0 = e0_m.mean()
+    check(e0 < MERGE_SEQ0_MEAN_M, f"merge: sequence 0's own mean error in "
+          f"its start frame {e0} m >= {MERGE_SEQ0_MEAN_M} m")
+    for s in (1, 2):
+        m_mean, u_mean, a_mean, a_max = out[s]
+        check(m_mean < MERGE_MEAN_M and m_mean < MERGE_RATIO * u_mean,
+              f"merge sequence {s}: merged mean {m_mean} m, against "
+              f"{MERGE_MEAN_M} m and {MERGE_RATIO} x unmerged {u_mean} m")
+        check(a_mean < MERGE_ALIGNED_MEAN_M and a_max < MERGE_ALIGNED_MAX_M,
+              f"merge sequence {s}: aligned placement mean {a_mean} m max "
+              f"{a_max} m, against {MERGE_ALIGNED_MEAN_M} / "
+              f"{MERGE_ALIGNED_MAX_M} m")
+    return out
+
+
+def batch_step_launches(batch, single, pts_all, msk_all, card):
+    """Kernel launches of one batched perception step and one batched
+    mapping tick (three sequences) beside the single-sequence functions
+    on one sequence, by ``torch.profiler`` after the drives."""
+    from sc_lego_loam_tpu_torch.parallel import batch as pbatch
+
+    cfg = batch.config
+    window = torch.tensor(BATCH_STARTS, device="cuda") + BATCH_WINDOW - 1
+    pts, msk = pts_all[window], msk_all[window]
+    odo, pose, out_pts, out_mask = batch._perception(pts, msk, batch.odo)
+    odo1 = _seq(batch.odo, 0)
+    o1, p1, op1, om1 = pipeline._odo_perception(cfg, pts[0], msk[0], odo1)
+    t = torch.full((), 24.0, device="cuda")
+    map1 = _seq(batch.map, 0)
+    parts = [
+        ("batched perception step, 3 sequences",
+         lambda: batch._perception(pts, msk, batch.odo)),
+        ("single-sequence perception (_odo_perception)",
+         lambda: pipeline._odo_perception(cfg, pts[0], msk[0], odo1)),
+        ("batched mapping tick, 3 sequences (rows, not written)",
+         lambda: batch._mapping(batch.map, batch.last_kf_odom, pose,
+                                odo.corner_last.xyz, odo.corner_last.mask,
+                                odo.surf_last.xyz, odo.surf_last.mask,
+                                out_pts, out_mask, t)),
+        ("single-sequence mapping tick (rows, not written)",
+         lambda: pbatch._map_one(cfg, map1, batch.last_kf_odom[0], p1,
+                                 o1.corner_last.xyz, o1.corner_last.mask,
+                                 o1.surf_last.xyz, o1.surf_last.mask, op1,
+                                 om1, t)),
+    ]
+    got = measure_parts("batch step", parts, card)
+    names = [p[0] for p in parts]
+    step_b = got[names[0]]["launches"] + got[names[2]]["launches"] / 3
+    step_1 = got[names[1]]["launches"] + got[names[3]]["launches"] / 3
+    print(f"launches per batched step (perception + a third of a mapping "
+          f"tick): {step_b:.0f} for 3 sequences against {step_1:.0f} for "
+          f"one (ratio {step_b / step_1:.3f}) [{card}]", flush=True)
+    return got
+
+
 def check_no_jax():
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "sc_lego_loam_tpu")
@@ -904,6 +1413,7 @@ def main():
     print(f"card: {card}", flush=True)
 
     scans, valids, gt = make_drive(default_config(), drive, card)
+    b_scans, b_valids, b_gt = make_batch_drive(default_config(), card)
 
     info = cuda_knn.build()
     print(f"build: {info.path} in {info.seconds:.2f} s [{card}]", flush=True)
@@ -920,6 +1430,7 @@ def main():
                                card)
                for seed, (name, k, Q, T, max_sq) in enumerate(SHAPES)]
     tie_and_small_count_checks(card)
+    batched_kernel_checks(card)
     small_linalg_times(card)
     prepare_targets_times(card)
 
@@ -964,6 +1475,14 @@ def main():
           f"{lidar['peak']} [{card}]", flush=True)
     elapsed("the IMU path")
 
+    b_pts = torch.from_numpy(b_scans).cuda()
+    b_msk = torch.from_numpy(b_valids).cuda()
+    paths["batch"], batch_engine, batched = run_batch_path(
+        base, b_pts, b_msk, b_gt, lidar, card)
+    elapsed("the batch path")
+    run_merge(base, batch_engine, b_gt, card)
+    elapsed("the merge")
+
     paths["runner"] = run_runner(scans, valids, gt, card)
     elapsed("the runner")
     # From here on nothing counts as a launch of a path.
@@ -973,6 +1492,7 @@ def main():
     del imu_engine
     clouds = loop_tick_breakdown(engine, card)
     real_cloud_checks(engine, clouds, card)
+    batch_step_launches(batch_engine, engine, b_pts, b_msk, card)
     check_no_jax()
     elapsed("everything")
 
@@ -988,7 +1508,8 @@ def main():
               launches=sum(per_path[1].values()), **icp)
     check(all(n > 0 for n in per_path[5].values()),
           f"a path never launched the k=5 kernel: {per_path[5]}")
-    check(per_path[1]["loop"] > 0 and per_path[1]["imu"] > 0,
+    check(per_path[1]["loop"] > 0 and per_path[1]["imu"] > 0
+          and per_path[1]["batch"] > 0,
           f"a loop-closing path never launched the k=1 kernel: {per_path[1]}")
     print(f"card: {card}")
     print(json.dumps({"kernels": [k5, k1]}))

@@ -7,10 +7,11 @@ counterpart of ``ops/projection.py`` there), plain functions on tensors,
 everything else is eager torch.
 
 The engine runs odometry, scan-to-map and loop closure (Scan Context and
-radius detection, ICP through the CUDA kNN at k=1, pose-graph re-solve);
-the IMU path is not ported and ``SlamEngine`` refuses it.  The package has
-its own ``config`` and ``utils/synthetic`` and imports nothing of the JAX
-package, and no module of it imports jax.
+radius detection, ICP through the CUDA kNN at k=1, pose-graph re-solve),
+with or without the IMU; ``parallel.batch`` runs several sequences at once
+under ``torch.func.vmap`` and merges them.  The package has its own
+``config`` and ``utils/synthetic`` and imports nothing of the JAX package,
+and no module of it imports jax.
 """
 
 from .config import (  # noqa: F401

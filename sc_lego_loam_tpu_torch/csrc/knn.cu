@@ -8,7 +8,9 @@
 // its layout: no (8,T) transposed pad, no strided 128-lane chunks, no int32
 // key packing and no quantization, so the result is exact.
 //
-// Contract (same as the plain version, ops/knn.py):
+// Contract (same as the plain version, ops/knn.py), for each of B items
+// (the batch axis a vmapped caller adds; every pointer below holds B
+// items back to back and the grid's z axis picks the item):
 //   for each query row q < qcnt: the K nearest targets t < tcnt with
 //   d = fmaf(dz,dz,fmaf(dy,dy,dx*dx)) < max_sq in fp32, ascending, ties to
 //   the lower compacted slot; idx is mapped back to the caller's original
@@ -54,7 +56,7 @@
 //     rechecked with `<` in slot order, so ties and NaN behave as in a
 //     one-by-one scan.
 //  6. An exact merge: each block writes its R x K partial lists (distance,
-//     compacted slot) to scratch laid out (S, K, Q); knn_merge inserts the
+//     compacted slot) to scratch laid out (B, S, K, Q); knn_merge inserts the
 //     live splits' lists in split order with the same strict `<`, which is
 //     the lexicographic order by (distance, slot) because split s holds
 //     lower slots than split s+1; then it maps through perm, fills empties
@@ -196,8 +198,9 @@ __device__ __forceinline__ int split_len(int tcnt, int S) {
   return (tcnt + S - 1) / S;
 }
 
-// Partial top-K of one query tile over one target split.  part_d / part_i
-// are (S, K, Q): row (s, j) holds slot j of every query's list for split s.
+// Partial top-K of one query tile over one target split of item
+// blockIdx.z.  part_d / part_i are (B, S, K, Q): row (b, s, j) holds slot j
+// of every query's list for split s of item b.
 //
 // With B > 0 a pair that beats its query's K-th best is not inserted where
 // it is found.  An insert executed for one lane costs the warp as much as
@@ -225,6 +228,13 @@ knn_partial(const float* __restrict__ query, const float4* __restrict__ tgt,
   // Noted batches, [depth][thread]: a warp's lanes hit 32 banks.
   int* noted = reinterpret_cast<int*>(smem + kRingBytes) + threadIdx.x;
 
+  const int item = blockIdx.z;
+  query += (size_t)item * Q * 3;
+  tgt += (size_t)item * T;
+  tcnt_ptr += item;
+  qcnt_ptr += item;
+  part_d += (size_t)item * gridDim.y * K * Q;
+  part_i += (size_t)item * gridDim.y * K * Q;
   const int qcnt = min(*qcnt_ptr, Q);
   const int q0 = blockIdx.x * (THREADS * R);
   if (q0 >= qcnt) return;                       // whole tile past the count
@@ -385,7 +395,7 @@ knn_partial(const float* __restrict__ query, const float4* __restrict__ tgt,
 }
 
 // Merge the live splits' sorted lists, map through perm, fill empties and
-// write the outputs.  A block takes 32 queries; each of its kMergeWarps
+// write the outputs of item blockIdx.y.  A block takes 32 queries; each of its kMergeWarps
 // warps merges a contiguous share of the splits for them (coalesced loads,
 // the lists of kMergeBatch splits in flight together), in split order with
 // the strict `<`; warp 0 then merges the warps' lists in warp order.  A
@@ -401,6 +411,14 @@ knn_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
   __shared__ int warp_i[kMergeWarps][K][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int q = blockIdx.x * 32 + lane;
+  const int item = blockIdx.y;
+  part_d += (size_t)item * S * K * Q;
+  part_i += (size_t)item * S * K * Q;
+  perm += (size_t)item * T;
+  tcnt_ptr += item;
+  qcnt_ptr += item;
+  out_idx += (size_t)item * Q * K;
+  out_sqd += (size_t)item * Q * K;
   float bd[K];
   int bi[K];
 #pragma unroll
@@ -462,7 +480,7 @@ knn_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
 
 template <int K>
 cudaError_t launch(const float* query, const float4* tgt, const int64_t* perm,
-                   const int* tcnt, const int* qcnt, int Q, int T, int S,
+                   const int* tcnt, const int* qcnt, int B, int Q, int T, int S,
                    float max_sq, float* part_d, int* part_i, int64_t* out_idx,
                    float* out_sqd, cudaStream_t stream) {
   using C = Tune<K>;
@@ -475,28 +493,30 @@ cudaError_t launch(const float* query, const float4* tgt, const int64_t* perm,
     if (attr != cudaSuccess) return attr;
   }
   const int per_block = C::threads * C::R;
-  const dim3 grid((Q + per_block - 1) / per_block, S);
+  const dim3 grid((Q + per_block - 1) / per_block, S, B);
   kernel<<<grid, C::threads, kSmemBytes, stream>>>(
       query, tgt, tcnt, qcnt, Q, T, max_sq, part_d, part_i);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  knn_merge<K><<<(Q + 31) / 32, 32 * kMergeWarps, 0, stream>>>(
+  knn_merge<K><<<dim3((Q + 31) / 32, B), 32 * kMergeWarps, 0, stream>>>(
       part_d, part_i, perm, tcnt, qcnt, Q, T, S, max_sq, out_idx, out_sqd);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// query (Q,3) f32, tgt (T,4) f32 records, perm (T,) i64, tcnt / qcnt (1,)
-// i32, part_d / part_i (S,k,Q) f32 / i32 scratch, out_idx (Q,k) i64,
-// out_sqd (Q,k) f32; all device pointers.  Two kernels on `stream`.
-extern "C" int knn_launch(const void* query, const void* tgt,
-                          const void* perm, const void* tcnt,
-                          const void* qcnt, int Q, int T, int k, int S,
-                          float max_sq, void* part_d, void* part_i,
-                          void* out_idx, void* out_sqd, void* stream) {
-  if (Q <= 0) return 0;
-  if (S < 1 || S > 65535 || T < 0)
+// B items of: query (Q,3) f32, tgt (T,4) f32 records, perm (T,) i64, tcnt /
+// qcnt (1,) i32, part_d / part_i (S,k,Q) f32 / i32 scratch, out_idx (Q,k)
+// i64, out_sqd (Q,k) f32; each argument is the B items back to back, all
+// device pointers.  Two kernels on `stream`, whatever B is.
+extern "C" int knn_launch_batched(const void* query, const void* tgt,
+                                  const void* perm, const void* tcnt,
+                                  const void* qcnt, int B, int Q, int T,
+                                  int k, int S, float max_sq, void* part_d,
+                                  void* part_i, void* out_idx, void* out_sqd,
+                                  void* stream) {
+  if (Q <= 0 || B == 0) return 0;
+  if (S < 1 || S > 65535 || T < 0 || B < 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* q = static_cast<const float*>(query);
   const float4* t = static_cast<const float4*>(tgt);
@@ -510,9 +530,11 @@ extern "C" int knn_launch(const void* query, const void* tgt,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
     case 1:
-      return launch<1>(q, t, p, tc, qc, Q, T, S, max_sq, pd, pi, oi, od, s);
+      return launch<1>(q, t, p, tc, qc, B, Q, T, S, max_sq, pd, pi, oi, od,
+                       s);
     case 5:
-      return launch<5>(q, t, p, tc, qc, Q, T, S, max_sq, pd, pi, oi, od, s);
+      return launch<5>(q, t, p, tc, qc, B, Q, T, S, max_sq, pd, pi, oi, od,
+                       s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -123,6 +123,33 @@ def verify(config: PipelineConfig, kf: KeyframeStore,
     return Z, fitness, accept
 
 
+def verify_and_add(config: PipelineConfig, kf: KeyframeStore,
+                   loops: posegraph.LoopFactors, cur: torch.Tensor,
+                   idx: torch.Tensor, place: torch.Tensor,
+                   yaw: torch.Tensor | None):
+    """Verify one hypothesis and merge its factor into ``loops`` with
+    ``torch.where``: a rejected one leaves the bank bit-identical.
+    Returns (loops, accepted)."""
+    Z, _, ok = verify(config, kf, cur, idx, place, yaw_init=yaw)
+    new = posegraph.add_loop(loops, cur, idx, Z, kf.poses6)
+    return posegraph.LoopFactors(
+        *(torch.where(ok, b, a) for a, b in zip(loops, new))), ok
+
+
+def sc_hypothesis(kf: KeyframeStore, sc_idx: torch.Tensor):
+    """(candidate, placement) of a Scan Context hit: the query cloud is
+    placed at the candidate's pose (mO.cpp:926-929)."""
+    idx = torch.clamp(sc_idx, min=0)
+    return idx, se3.pose6_to_mat(_row(kf.poses6, idx))
+
+
+def rs_hypothesis(kf: KeyframeStore, cur: torch.Tensor,
+                  rs_idx: torch.Tensor):
+    """(candidate, placement) of a radius-search hit: the query cloud stays
+    at the current estimate."""
+    return torch.clamp(rs_idx, min=0), se3.pose6_to_mat(_row(kf.poses6, cur))
+
+
 def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
                 loops: posegraph.LoopFactors, cur_desc: torch.Tensor):
     """One full loop-closure tick (the reference's 1 Hz loopClosureThread,
@@ -151,23 +178,14 @@ def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
         [sc_idx >= 0, (rs_idx >= 0) & (rs_idx != sc_idx)]).tolist()
 
     closed = torch.zeros((), dtype=torch.bool, device=dev)
-
-    def verified(loops, idx, place, yaw):
-        Z, _, ok = verify(config, kf, cur, idx, place, yaw_init=yaw)
-        new = posegraph.add_loop(loops, cur, idx, Z, kf.poses6)
-        return posegraph.LoopFactors(
-            *(torch.where(ok, b, a) for a, b in zip(loops, new))), ok
-
     if run_sc:
-        # The SC yaw seeds the verification ICP; the query cloud is placed
-        # at the candidate's pose.
-        idx = torch.clamp(sc_idx, min=0)
-        loops, ok = verified(loops, idx,
-                             se3.pose6_to_mat(_row(kf.poses6, idx)), sc_yaw)
+        # The SC yaw seeds the verification ICP.
+        loops, ok = verify_and_add(config, kf, loops, cur,
+                                   *sc_hypothesis(kf, sc_idx), sc_yaw)
         closed = closed | ok
     if run_rs:
-        loops, ok = verified(loops, torch.clamp(rs_idx, min=0),
-                             se3.pose6_to_mat(_row(kf.poses6, cur)), None)
+        loops, ok = verify_and_add(config, kf, loops, cur,
+                                   *rs_hypothesis(kf, cur, rs_idx), None)
         closed = closed | ok
 
     if (run_sc or run_rs) and bool(closed):

@@ -297,6 +297,33 @@ def downsample_scan(config: PipelineConfig,
     return c, cm, s, sm, o, om
 
 
+def keyframe_rows(config: PipelineConfig, kf: KeyframeStore,
+                  pose: torch.Tensor, time: torch.Tensor,
+                  corner: torch.Tensor, corner_mask: torch.Tensor,
+                  surf: torch.Tensor, surf_mask: torch.Tensor,
+                  outlier: torch.Tensor, outlier_mask: torch.Tensor,
+                  odom_pose: torch.Tensor | None = None):
+    """What a keyframe append writes, without writing it: the slot (1,)
+    (``count``, or the last slot of a full bank), whether the bank has room,
+    and one new row per bank field, in the store's field order (a full
+    bank's row is the slot's own contents).  Reads the bank only, so it
+    runs under ``torch.func.vmap``; the caller writes the rows."""
+    K = config.cap.max_keyframes
+    room = kf.count < K
+    i = torch.clamp(kf.count.to(torch.int64), max=K - 1).reshape(1)
+    prev = se3.pose6_to_mat(kf.poses6[torch.clamp(i - 1, min=0)][0])
+    z = torch.where(i[0] == 0, pose, se3.mat_inv(prev) @ pose)
+    if odom_pose is None:
+        odom_pose = pose
+    new = dict(poses6=se3.mat_to_pose6(pose), times=time, corner=corner,
+               corner_mask=corner_mask, surf=surf, surf_mask=surf_mask,
+               outlier=outlier, outlier_mask=outlier_mask, odom_z=z,
+               odom_pose=odom_pose)
+    rows = {name: torch.where(room, new[name], getattr(kf, name)[i][0])
+            for name in KeyframeStore._fields[:-1]}
+    return i, room, rows
+
+
 def insert_keyframe(config: PipelineConfig, kf: KeyframeStore,
                     should: torch.Tensor, pose: torch.Tensor,
                     time: torch.Tensor,
@@ -309,28 +336,12 @@ def insert_keyframe(config: PipelineConfig, kf: KeyframeStore,
     ``count`` (invisible: readers mask by ``< count``) and ``should`` only
     bumps the count; a full bank rewrites its last slot with its own
     contents and drops the keyframe.  Returns (kf, inserted)."""
-    K = config.cap.max_keyframes
-    room = kf.count < K
-    i = torch.clamp(kf.count.to(torch.int64), max=K - 1).reshape(1)
+    i, room, rows = keyframe_rows(config, kf, pose, time, corner,
+                                  corner_mask, surf, surf_mask, outlier,
+                                  outlier_mask, odom_pose)
+    for name, row in rows.items():
+        getattr(kf, name).index_copy_(0, i, row[None])
     inserted = should & room
-
-    def put(bank, new):
-        bank.index_copy_(0, i, torch.where(room, new, bank[i][0])[None])
-
-    prev = se3.pose6_to_mat(kf.poses6[torch.clamp(i - 1, min=0)][0])
-    z = torch.where(i[0] == 0, pose, se3.mat_inv(prev) @ pose)
-    if odom_pose is None:
-        odom_pose = pose
-    put(kf.odom_z, z)
-    put(kf.odom_pose, odom_pose)
-    put(kf.poses6, se3.mat_to_pose6(pose))
-    put(kf.times, time)
-    put(kf.corner, corner)
-    put(kf.corner_mask, corner_mask)
-    put(kf.surf, surf)
-    put(kf.surf_mask, surf_mask)
-    put(kf.outlier, outlier)
-    put(kf.outlier_mask, outlier_mask)
     kf = kf._replace(count=kf.count + inserted.to(torch.int32))
     return kf, inserted
 

@@ -55,8 +55,8 @@ def make_descriptor(points: torch.Tensor, mask: torch.Tensor,
     sector = torch.clamp((theta / (360.0 / S)).to(torch.int32), 0, S - 1)
     flat = torch.where(ok, ring * S + sector, 0).to(torch.int64)
     val = torch.where(ok, z + sc.lidar_height, -_BIG)
-    desc = torch.full((R * S,), -_BIG, device=points.device)
-    desc.scatter_reduce_(0, flat, val, "amax")
+    desc = torch.full((R * S,), -_BIG, device=points.device
+                      ).scatter_reduce(0, flat, val, "amax")
     desc = torch.where(desc <= -_BIG * 0.5, 0.0, desc)
     return desc.reshape(R, S)
 
@@ -71,17 +71,23 @@ def sector_key(desc: torch.Tensor) -> torch.Tensor:
     return desc.mean(-2)
 
 
+def append_rows(bank: DescriptorBank, desc: torch.Tensor, max_k: int):
+    """What ``append`` writes, without writing it: (slot (1,), room,
+    desc row, ring-key row); runs under ``torch.func.vmap``."""
+    room = bank.count < max_k
+    i = torch.clamp(bank.count.to(torch.int64), max=max_k - 1).reshape(1)
+    return (i, room, torch.where(room, desc, bank.desc[i][0]),
+            torch.where(room, ring_key(desc), bank.ringkey[i][0]))
+
+
 def append(bank: DescriptorBank, desc: torch.Tensor, max_k: int,
            should: torch.Tensor) -> DescriptorBank:
     """Guarded append IN PLACE, mirroring mapping.insert_keyframe: the
     descriptor is always written at slot ``count`` and ``should`` gates only
     the count bump; a full bank rewrites its last slot and drops it."""
-    room = bank.count < max_k
-    i = torch.clamp(bank.count.to(torch.int64), max=max_k - 1).reshape(1)
-    bank.desc.index_copy_(
-        0, i, torch.where(room, desc, bank.desc[i][0])[None])
-    bank.ringkey.index_copy_(
-        0, i, torch.where(room, ring_key(desc), bank.ringkey[i][0])[None])
+    i, room, desc_row, key_row = append_rows(bank, desc, max_k)
+    bank.desc.index_copy_(0, i, desc_row[None])
+    bank.ringkey.index_copy_(0, i, key_row[None])
     return bank._replace(count=bank.count + (should & room).to(torch.int32))
 
 

@@ -14,9 +14,9 @@ def compact_indices(mask: torch.Tensor, pad: int):
     sel = mask & (pos < pad)
     src = torch.arange(n, dtype=torch.int64, device=mask.device)
     zero = torch.zeros_like(src)
-    idx = torch.zeros(pad, dtype=torch.int64, device=mask.device)
-    idx.scatter_reduce_(0, torch.where(sel, pos, zero),
-                        torch.where(sel, src, zero), "amax")
+    idx = torch.zeros(pad, dtype=torch.int64, device=mask.device
+                      ).scatter_reduce(0, torch.where(sel, pos, zero),
+                                       torch.where(sel, src, zero), "amax")
     count = torch.clamp(mask.sum(), max=pad)
     ok = torch.arange(pad, device=mask.device) < count
     return idx, ok

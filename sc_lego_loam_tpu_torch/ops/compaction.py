@@ -74,8 +74,7 @@ def _row_compact(img: RangeImage, keep: torch.Tensor, ground: torch.Tensor,
     def scat(a):
         a2 = a.reshape(H * W, -1)
         table = torch.zeros((H * W + 1, a2.shape[1]), dtype=a2.dtype,
-                            device=dev)
-        table.index_put_((dest,), a2)
+                            device=dev).index_put((dest,), a2)
         return table[:H * W].reshape((H, W) + a.shape[2:])
 
     count = keep.sum(-1, dtype=torch.int32)

@@ -1,11 +1,18 @@
 """Scan-to-map 5-NN and ICP 1-NN on the card: the hand-written CUDA kernel in
 ``csrc/knn.cu`` (the counterpart of ``sc_lego_loam_tpu/ops/pallas_knn.py``).
 
-``make_knn`` is what the engine calls.  It routes by the device of the
-tensors it is given: CUDA tensors go to the kernel, CPU tensors to the
-plain version (``ops/knn.py``, same contract).  There is no other switch
-and no fallback: on a CUDA tensor the kernel builds and launches, or the
-call raises.
+``make_knn`` is what the engine calls.  It prepares the targets and calls
+the custom op ``sc_lego_loam_tpu_torch::knn``, which routes by the device
+of the tensors it is given: CUDA tensors go to the kernel, CPU tensors to
+the plain version (``ops/knn.py``, same contract).  There is no other
+switch and no fallback: on a CUDA tensor the kernel builds and launches,
+or the call raises.
+
+The op has a batch axis, as ``jax.vmap`` gives the Pallas kernel a grid
+axis: under ``torch.func.vmap`` its batching rule moves the vmapped
+dimension to the front and makes ONE call over all B items (one launch of
+each kernel on the card; on the CPU the plain version item by item).  The
+outputs equal B separate calls in every slot.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library on
 first use, in ``_build/`` next to the package and keyed by a hash of the
@@ -13,9 +20,9 @@ source, and loaded with ctypes.  One call is two device kernels on the
 current stream: ``knn_partial`` on a grid of query tiles x target splits,
 and ``knn_merge``, which merges the splits' partial lists exactly.  The
 number of splits S is chosen here from the static shapes (``plan``); the
-outputs and the (S,k,Q) scratch are allocated here, nothing in the C call.
-``launches[k]`` counts the calls of each instantiation (k=5: scan-to-map,
-k=1: ICP).
+outputs and the (B,S,k,Q) scratch are allocated here, nothing in the C
+call.  ``launches[k]`` counts the calls of each instantiation (k=5:
+scan-to-map, k=1: ICP); a batched call counts once.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ KERNELS_PER_CALL = 2          # knn_partial + knn_merge
 WARPS_PER_SM = {1: 11, 5: 64}
 MIN_SPLIT_TARGETS = 256
 
-launches = dict.fromkeys(KS, 0)   # calls of knn_prepared per k since the reset
+launches = dict.fromkeys(KS, 0)   # kernel calls per k since the reset
 
 
 def reset_launches():
@@ -122,10 +129,9 @@ def compile_library(defines: tuple[str, ...] = ()) -> BuildInfo:
 def load_library(path: str):
     """The library's C interface, and what each k was compiled with."""
     lib = ctypes.CDLL(path)
-    lib.knn_launch.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float] + [ctypes.c_void_p] * 5
-    lib.knn_launch.restype = ctypes.c_int
+    lib.knn_launch_batched.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+    lib.knn_launch_batched.restype = ctypes.c_int
     lib.knn_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.knn_config.restype = ctypes.c_int
     lib.knn_error_string.argtypes = [ctypes.c_int]
@@ -158,20 +164,22 @@ class Plan(NamedTuple):
 
     splits: int               # S: contiguous ranges of compacted targets
     query_tiles: int          # blocks along the query axis
-    blocks: int               # query_tiles * splits
+    blocks: int               # items * query_tiles * splits
     kernels: int              # device kernels per call
 
 
 def choose_splits(Q: int, T: int, cfg: KernelConfig, sm_count: int,
-                  warps_per_sm: int) -> Plan:
-    """S such that the grid offers ``warps_per_sm`` warps to every SM, but
-    no split shorter than ``MIN_SPLIT_TARGETS`` of the pad.  The kernel
-    cuts the *valid* targets into S ranges, so every split has work."""
+                  warps_per_sm: int, items: int = 1) -> Plan:
+    """S such that the grid (``items`` x query tiles x S blocks) offers
+    ``warps_per_sm`` warps to every SM, but no split shorter than
+    ``MIN_SPLIT_TARGETS`` of the pad: a batch of items needs fewer splits.
+    The kernel cuts the *valid* targets into S ranges, so every split has
+    work."""
     tiles = -(-Q // (cfg.threads * cfg.R))
     want = -(-sm_count * warps_per_sm // (cfg.threads // 32))
-    S = min(-(-want // max(tiles, 1)), T // MIN_SPLIT_TARGETS)
+    S = min(-(-want // max(tiles * items, 1)), T // MIN_SPLIT_TARGETS)
     S = max(1, min(S, 65535))
-    return Plan(S, tiles, tiles * S, KERNELS_PER_CALL)
+    return Plan(S, tiles, items * tiles * S, KERNELS_PER_CALL)
 
 
 @lru_cache(maxsize=None)
@@ -179,13 +187,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(k: int, Q: int, T: int, device) -> Plan:
-    """The plan ``knn_prepared`` uses for this shape on this card."""
+def plan(k: int, Q: int, T: int, device, items: int = 1) -> Plan:
+    """The plan a call of ``items`` items of this shape uses on this card."""
     build()
     device = torch.device(device)
     index = (torch.cuda.current_device() if device.index is None
              else device.index)
-    return choose_splits(Q, T, _configs[k], _sm_count(index), WARPS_PER_SM[k])
+    return choose_splits(Q, T, _configs[k], _sm_count(index), WARPS_PER_SM[k],
+                         items)
 
 
 def kernel_config(k: int) -> KernelConfig:
@@ -204,11 +213,12 @@ class PreparedTargets(NamedTuple):
 
 def prepare_targets(target: torch.Tensor,
                     target_mask: torch.Tensor) -> PreparedTargets:
-    """Prefix-compact the targets on the device (hoisted out of LM loops)."""
+    """Prefix-compact the targets on the device (hoisted out of LM loops).
+    Out of place throughout, so that it runs under ``torch.func.vmap``."""
     T = target.shape[0]
     perm, ok = compact_indices(target_mask, T)
-    tgt = torch.zeros((T, 4), dtype=target.dtype, device=target.device)
-    tgt[:, :3] = torch.where(ok[:, None], target[perm], 0.0)
+    xyz = torch.where(ok[:, None], target[perm], 0.0)
+    tgt = torch.cat([xyz, torch.zeros_like(xyz[:, :1])], 1)
     return PreparedTargets(tgt=tgt, cnt=ok.sum(dtype=torch.int32).reshape(1),
                            perm=perm)
 
@@ -226,24 +236,115 @@ def _check(name, t, dtype, shape, device):
 
 def launch_with(lib, query: torch.Tensor, prep: PreparedTargets, k: int,
                 max_sq_dist: float, qcnt: torch.Tensor, splits: int):
-    """The C call on checked tensors: allocate the outputs and the scratch,
-    put both kernels on the current stream, raise if a launch is refused."""
+    """The C call on checked tensors of B items: query (B,Q,3), prep.tgt
+    (B,T,4), prep.perm (B,T), prep.cnt and qcnt (B,).  Allocates the
+    outputs (B,Q,k) and the scratch, puts both kernels on the current
+    stream, raises if a launch is refused."""
     dev = query.device
-    Q, T, S = query.shape[0], prep.tgt.shape[0], splits
-    idx = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    sqd = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    part_d = torch.empty((S, k, Q), dtype=torch.float32, device=dev)
-    part_i = torch.empty((S, k, Q), dtype=torch.int32, device=dev)
+    B, Q = query.shape[:2]
+    T, S = prep.tgt.shape[1], splits
+    idx = torch.empty((B, Q, k), dtype=torch.int64, device=dev)
+    sqd = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
+    part_d = torch.empty((B, S, k, Q), dtype=torch.float32, device=dev)
+    part_i = torch.empty((B, S, k, Q), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.knn_launch(query.data_ptr(), prep.tgt.data_ptr(),
-                         prep.perm.data_ptr(), prep.cnt.data_ptr(),
-                         qcnt.data_ptr(), Q, T, k, S, float(max_sq_dist),
-                         part_d.data_ptr(), part_i.data_ptr(),
-                         idx.data_ptr(), sqd.data_ptr(), stream)
+    err = lib.knn_launch_batched(
+        query.data_ptr(), prep.tgt.data_ptr(), prep.perm.data_ptr(),
+        prep.cnt.data_ptr(), qcnt.data_ptr(), B, Q, T, k, S,
+        float(max_sq_dist), part_d.data_ptr(), part_i.data_ptr(),
+        idx.data_ptr(), sqd.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("knn kernel launch failed: "
                            + lib.knn_error_string(err).decode())
     return idx, sqd
+
+
+def _kernel(query, tgt, perm, cnt, qcnt, k, max_sq_dist, splits):
+    """The op on CUDA tensors of B items: check, plan, launch, count."""
+    dev = query.device
+    B, Q = query.shape[:2]
+    T = tgt.shape[1]
+    _check("query", query, torch.float32, (B, Q, 3), dev)
+    _check("targets", tgt, torch.float32, (B, T, 4), dev)
+    _check("target count", cnt, torch.int32, (B,), dev)
+    _check("perm", perm, torch.int64, (B, T), dev)
+    _check("qcnt", qcnt, torch.int32, (B,), dev)
+    build()
+    S = plan(k, Q, T, dev, B).splits if splits < 1 else splits
+    if S > 65535:
+        raise ValueError(f"splits={S}: the grid takes 1..65535")
+    out = launch_with(_lib, query, PreparedTargets(tgt, cnt, perm), k,
+                      max_sq_dist, qcnt, S)
+    launches[k] += 1
+    return out
+
+
+def _plain(query, tgt, perm, cnt, qcnt, k, max_sq_dist):
+    """The op on CPU tensors: the plain version item by item, over the
+    prepared targets (compaction keeps index order, so ties still go to the
+    lower original index), mapped back through perm."""
+    slot = torch.arange(tgt.shape[1], device=tgt.device)
+    idx, sqd = [], []
+    for b in range(query.shape[0]):
+        i, d = plain.knn(query[b], tgt[b, :, :3], slot < cnt[b], k,
+                         max_sq_dist, qcnt[b:b + 1])
+        idx.append(torch.where(d < max_sq_dist, perm[b][i], 0))
+        sqd.append(d)
+    return torch.stack(idx), torch.stack(sqd)
+
+
+@torch.library.custom_op("sc_lego_loam_tpu_torch::knn", mutates_args=())
+def knn_op(query: torch.Tensor, tgt: torch.Tensor, perm: torch.Tensor,
+           cnt: torch.Tensor, qcnt: torch.Tensor, k: int,
+           max_sq_dist: float, splits: int) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """k-NN of B items: query (B,Q,3), prepared targets tgt (B,T,4), perm
+    (B,T), cnt (B,) int32, qcnt (B,) int32.  Returns (idx (B,Q,k) int64,
+    sqd (B,Q,k) float32).  CUDA tensors launch the kernel once for all B
+    items (``splits`` < 1: the planned S); CPU tensors take the plain
+    version."""
+    if query.device.type == "cuda":
+        return _kernel(query, tgt, perm, cnt, qcnt, k, max_sq_dist, splits)
+    return _plain(query, tgt, perm, cnt, qcnt, k, max_sq_dist)
+
+
+@knn_op.register_fake
+def _knn_fake(query, tgt, perm, cnt, qcnt, k, max_sq_dist, splits):
+    B, Q = query.shape[:2]
+    return (query.new_empty((B, Q, k), dtype=torch.int64),
+            query.new_empty((B, Q, k)))
+
+
+def _knn_vmap(info, in_dims, query, tgt, perm, cnt, qcnt, k, max_sq_dist,
+              splits):
+    """Batching rule: the vmapped dimension goes to the front and is merged
+    with the op's own item axis, so a vmap of n sequences is one call of
+    n * B items."""
+    n = info.batch_size
+
+    def items(x, d):
+        x = x.movedim(d, 0) if d is not None else x.expand(n, *x.shape)
+        return x.reshape(n * x.shape[1], *x.shape[2:]).contiguous()
+
+    args = [items(x, d) for x, d in zip((query, tgt, perm, cnt, qcnt),
+                                        in_dims)]
+    idx, sqd = knn_op(*args, k, max_sq_dist, splits)
+    shape = (n, -1) + idx.shape[1:]
+    return (idx.reshape(shape), sqd.reshape(shape)), (0, 0)
+
+
+torch.library.register_vmap(knn_op, _knn_vmap)
+
+
+def _call(query, prep: PreparedTargets, k, max_sq_dist, qcnt, splits):
+    """One item through the op (a vmapped caller makes it a batch)."""
+    if qcnt is None:
+        qcnt = torch.full((1,), query.shape[0], dtype=torch.int32,
+                          device=query.device)
+    idx, sqd = knn_op(query[None], prep.tgt[None], prep.perm[None], prep.cnt,
+                      qcnt, k, float(max_sq_dist),
+                      -1 if splits is None else int(splits))
+    return idx[0], sqd[0]
 
 
 def knn_prepared(query: torch.Tensor, prep: PreparedTargets, k: int,
@@ -255,34 +356,18 @@ def knn_prepared(query: torch.Tensor, prep: PreparedTargets, k: int,
     planned S (tests and tuning)."""
     if k not in KS:
         raise ValueError(f"k={k}: the kernel is built for k in {KS}")
-    dev = query.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kNN needs CUDA tensors, got {dev}")
-    Q, T = query.shape[0], prep.tgt.shape[0]
-    if qcnt is None:
-        qcnt = torch.full((1,), Q, dtype=torch.int32, device=dev)
-    _check("query", query, torch.float32, (Q, 3), dev)
-    _check("targets", prep.tgt, torch.float32, (T, 4), dev)
-    _check("target count", prep.cnt, torch.int32, (1,), dev)
-    _check("perm", prep.perm, torch.int64, (T,), dev)
-    _check("qcnt", qcnt, torch.int32, (1,), dev)
-    build()
-    S = plan(k, Q, T, dev).splits if splits is None else int(splits)
-    if not 1 <= S <= 65535:
-        raise ValueError(f"splits={S}: the grid takes 1..65535")
-    out = launch_with(_lib, query, prep, k, max_sq_dist, qcnt, S)
-    launches[k] += 1
-    return out
+    if query.device.type != "cuda":
+        raise ValueError(f"the CUDA kNN needs CUDA tensors, got "
+                         f"{query.device}")
+    if splits is not None and not 1 <= splits <= 65535:
+        raise ValueError(f"splits={splits}: the grid takes 1..65535")
+    return _call(query, prep, k, max_sq_dist, qcnt, splits)
 
 
 def make_knn(target: torch.Tensor, target_mask: torch.Tensor, k: int,
              max_sq_dist: float):
     """k-NN closure ``knn(q, qcnt) -> (idx, sqd)`` over a fixed target set,
     with the target prep hoisted: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if target.device.type == "cuda":
-        prep = prepare_targets(target, target_mask)
-        return lambda q, qcnt=None: knn_prepared(q, prep, k, max_sq_dist,
-                                                 qcnt)
-    return lambda q, qcnt=None: plain.knn(q, target, target_mask, k,
-                                          max_sq_dist, qcnt)
+    plain version for CPU tensors.  Runs under ``torch.func.vmap``."""
+    prep = prepare_targets(target, target_mask)
+    return lambda q, qcnt=None: _call(q, prep, k, max_sq_dist, qcnt, None)

@@ -87,15 +87,15 @@ def occlusion_mask(cloud: SegmentedCloud, feat: FeatureConfig) -> torch.Tensor:
     close_cols = ((nxt_c - col).abs() < feat.occlusion_col_gap) & pair_ok
     a = close_cols & (r - nxt_r > feat.occlusion_range_gap)
     b = close_cols & (nxt_r - r > feat.occlusion_range_gap)
-    marked = torch.zeros((H, W), dtype=torch.bool, device=r.device)
-    for l in range(0, 6):
-        marked |= torch.roll(a, -l, 1)
+    marked = a
+    for l in range(1, 6):
+        marked = marked | torch.roll(a, -l, 1)
     for l in range(1, 7):
-        marked |= torch.roll(b, l, 1)
+        marked = marked | torch.roll(b, l, 1)
     prv_r = torch.roll(r, 1, 1)
     par = ((prv_r - r).abs() > feat.parallel_beam_ratio * r) & \
           ((nxt_r - r).abs() > feat.parallel_beam_ratio * r)
-    marked |= par
+    marked = marked | par
     return marked & cloud.valid
 
 
@@ -132,8 +132,8 @@ def _row_marks(W, pos, mask):
     """(H,W) bool with out[h,w] = any(pos[h,...]==w & mask[h,...])."""
     H = pos.shape[0]
     p = torch.where(mask, pos, W).reshape(H, -1)
-    out = torch.zeros((H, W + 1), dtype=torch.bool, device=pos.device)
-    out.scatter_(1, p, True)
+    out = torch.zeros((H, W + 1), dtype=torch.bool,
+                      device=pos.device).scatter(1, p, True)
     return out[:, :W]
 
 

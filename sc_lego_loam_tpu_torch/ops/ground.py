@@ -23,7 +23,6 @@ def ground_mask(img: RangeImage, lidar: LidarConfig,
     row_ok = (torch.arange(H - 1, device=angle.device)
               < lidar.ground_scan_ind)[:, None]
     pair_ok &= row_ok
-    g = torch.zeros((H, W), dtype=torch.bool, device=angle.device)
-    g[:-1] = pair_ok
-    g[1:] |= pair_ok
+    none = torch.zeros((1, W), dtype=torch.bool, device=angle.device)
+    g = torch.cat([pair_ok, none]) | torch.cat([none, pair_ok])
     return g & img.valid

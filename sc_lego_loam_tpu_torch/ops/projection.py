@@ -71,8 +71,8 @@ def project(points: torch.Tensor, mask: torch.Tensor,
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     SENT = (1 << 30) - 1
     key = torch.where(ok, (rq << 16) | idx, SENT)
-    packed = torch.full((H * W,), SENT, dtype=torch.int32, device=dev)
-    packed.scatter_reduce_(0, flat, key, "amin")
+    packed = torch.full((H * W,), SENT, dtype=torch.int32,
+                        device=dev).scatter_reduce(0, flat, key, "amin")
     valid = packed < SENT
     win = torch.clamp(packed & 0xFFFF, 0, n - 1).to(torch.int64)
     pts_w = points[win]

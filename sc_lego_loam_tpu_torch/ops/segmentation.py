@@ -102,7 +102,7 @@ def segment(img: RangeImage, ground: torch.Tensor, lidar: LidarConfig,
     rows = torch.arange(H, device=dev).repeat_interleave(W)
     activef = init < n
     safe_label = torch.where(activef, label, 0).to(torch.int64)
-    counts = torch.zeros(n, dtype=torch.int32, device=dev).scatter_add_(
+    counts = torch.zeros(n, dtype=torch.int32, device=dev).scatter_add(
         0, safe_label, activef.to(torch.int32))
     lines = _distinct_rows(safe_label, rows, activef, n, H)
 
@@ -124,6 +124,5 @@ def _distinct_rows(safe_label, rows, active, n, H):
     pixels)."""
     key = torch.where(active, safe_label * H + rows, n * H)
     presence = torch.zeros(n * H + 1, dtype=torch.int32,
-                           device=safe_label.device)
-    presence.index_fill_(0, key, 1)
+                           device=safe_label.device).index_fill(0, key, 1)
     return presence[:n * H].reshape(n, H).sum(-1, dtype=torch.int32)

@@ -32,10 +32,11 @@ def voxel_downsample_hash(points: torch.Tensor, mask: torch.Tensor,
     T = 1 << table_bits
     bucket = _bucket(points, mask, leaf, table_bits)
     w = mask.to(points.dtype)
-    sums = torch.zeros((T, 3), dtype=points.dtype, device=points.device)
-    sums.index_add_(0, bucket, points * w[:, None])
-    cnts = torch.zeros(T, dtype=points.dtype, device=points.device)
-    cnts.index_add_(0, bucket, w)
+    sums = torch.zeros((T, 3), dtype=points.dtype,
+                       device=points.device).index_add(
+        0, bucket, points * w[:, None])
+    cnts = torch.zeros(T, dtype=points.dtype,
+                       device=points.device).index_add(0, bucket, w)
     idx, ok = compact_indices(cnts > 0, out_pad)
     centroid = sums[idx] / torch.clamp(cnts[idx], min=1.0)[:, None]
     return torch.where(ok[:, None], centroid, 0.0), ok
@@ -51,8 +52,9 @@ def voxel_decimate(points: torch.Tensor, mask: torch.Tensor, leaf: float,
     T = 1 << table_bits
     bucket = _bucket(points, mask, leaf, table_bits)
     idx = torch.where(mask, torch.arange(n, device=points.device), n)
-    winner = torch.full((T,), n, dtype=torch.int64, device=points.device)
-    winner.scatter_reduce_(0, bucket, idx, "amin")
+    winner = torch.full((T,), n, dtype=torch.int64,
+                        device=points.device).scatter_reduce(
+        0, bucket, idx, "amin")
     sel, ok = compact_indices(winner < n, out_pad)
     out_idx = torch.clamp(winner[sel], 0, n - 1)
     out = torch.where(ok[:, None], points[out_idx], 0.0)

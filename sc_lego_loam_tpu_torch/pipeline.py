@@ -96,6 +96,18 @@ def _pre_deskew(config: PipelineConfig, fo, odo_state, imu_buf=None,
         outlier=outl._replace(xyz=o_xyz, rel_time=o_rel))
 
 
+def _odo_perception(config: PipelineConfig, points, mask, odo_state):
+    """Frontend -> carried-twist de-skew -> features -> odometry, with no
+    IMU and no trajectory rings: the vmappable core that
+    ``parallel.batch`` runs over a batch of sequences.
+    Returns (new_odo_state, odom_pose, out_pts, out_mask)."""
+    fo = frontend.run(config, points, mask)
+    fo = _pre_deskew(config, fo, odo_state)
+    fs, out_pts, out_mask = _extract(config, fo.cloud, fo.outlier)
+    odo, odom_pose, _ = odometry.step(config, odo_state, fs)
+    return odo, odom_pose, out_pts, out_mask
+
+
 class PerceptionState(NamedTuple):
     """Device state of the every-scan path."""
 

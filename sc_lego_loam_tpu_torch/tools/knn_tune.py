@@ -181,12 +181,14 @@ def main():
         max_sq *= args.gate_scale
         q, t, mask, qcnt = uniform_cloud(seed, Q, T)
         prep = cuda_knn.prepare_targets(t, mask)
+        one = cuda_knn.PreparedTargets(prep.tgt[None], prep.cnt,
+                                       prep.perm[None])
         ref = None
         for defines, lib, configs in libs:
             for S in splits:
                 call = lambda: cuda_knn.launch_with(   # noqa: E731
-                    lib, q, prep, k, max_sq, qcnt, S)
-                idx, sqd = call()
+                    lib, q[None], one, k, max_sq, qcnt, S)
+                idx, sqd = (x[0] for x in call())
                 torch.cuda.synchronize()
                 if ref is None:
                     pi, pd = plain_knn.knn(q, t, mask, k + 1, max_sq, qcnt)

@@ -44,3 +44,22 @@ def perception_state(src, device) -> pipeline.PerceptionState:
 
 def mapper_state(src, device) -> pipeline.MapperState:
     return to_torch(pipeline.MapperState, src, device)
+
+
+def load_batch_state(engine, src) -> None:
+    """Carry a JAX ``BatchEngine``'s state into the port's ``engine`` (a
+    ``parallel.batch.BatchEngine`` of the same configuration and S).
+    ``src`` has the JAX engine's attributes with every state leaf already
+    numpy (S-leading): ``odo``, ``map``, ``bank``, ``loops``,
+    ``last_kf_odom``, ``loops_closed``, ``traj``, and the host counters
+    ``_scan_i``, ``_map_ticks``, ``last_map_time``."""
+    dev = engine.device
+    for name in ("odo", "map", "bank", "loops"):
+        setattr(engine, name, to_torch(type(getattr(engine, name)),
+                                       getattr(src, name), dev))
+    for name in ("last_kf_odom", "loops_closed", "traj"):
+        setattr(engine, name, torch.from_numpy(
+            np.array(getattr(src, name), copy=True)).to(dev))
+    engine._scan_i = int(src._scan_i)
+    engine._map_ticks = int(src._map_ticks)
+    engine.last_map_time = float(src.last_map_time)

@@ -161,3 +161,108 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
                               torch.full((1,), 8, dtype=torch.int32))
     with pytest.raises(ValueError, match="splits=0"):
         cuda_knn.knn_prepared(q, prep, 5, 4.0, splits=0)
+
+
+# ---- the batch axis: B items in one call --------------------------------
+
+def _batch(seed, B, Q, Tn, valid, device):
+    """B independent clouds; item 1 (when B > 1) has no valid target, and
+    every item's second half of targets repeats its first half, so equal
+    distances fall across splits."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 2.0, (B, Q, 3)).astype(np.float32)
+    t = rng.normal(0, 2.0, (B, Tn, 3)).astype(np.float32)
+    t[:, Tn // 2:] = t[:, :Tn - Tn // 2]
+    mask = rng.random((B, Tn)) < valid
+    if B > 1:
+        mask[1] = False
+    live = rng.integers(Q // 2, Q + 1, B).astype(np.int32)
+    return (torch.from_numpy(x).to(device) for x in (q, t, mask, live))
+
+
+def _items(q, t, mask, live, k, max_sq, splits):
+    """The batched op over B items: query (B,Q,3) and prepared targets."""
+    preps = [cuda_knn.prepare_targets(t[b], mask[b]) for b in range(len(q))]
+    tgt = torch.stack([p.tgt for p in preps])
+    perm = torch.stack([p.perm for p in preps])
+    cnt = torch.cat([p.cnt for p in preps])
+    return preps, cuda_knn.knn_op(q, tgt, perm, cnt, live, k, max_sq,
+                                  -1 if splits is None else splits)
+
+
+@pytest.mark.parametrize("k,B,Q,Tn,max_sq,splits", [
+    (5, 3, 1000, 3000, 4.0, None),
+    (5, 3, 1000, 3000, 4.0, 7),
+    (1, 3, 700, 4099, 64.0, None),
+    (1, 8, 700, 4099, 64.0, 5),
+    (5, 8, 300, 1024, 1e6, 1),
+])
+def test_batch_equals_separate_calls_in_every_slot(card, k, B, Q, Tn, max_sq,
+                                                   splits):
+    """B items in one call equal B single calls bit for bit (ties across
+    splits included; item 1 has no valid target), and the plain version."""
+    q, t, mask, live = _batch(B + k, B, Q, Tn, 0.7, card)
+    before = cuda_knn.launches[k]
+    preps, (idx, sqd) = _items(q, t, mask, live, k, max_sq, splits)
+    assert cuda_knn.launches[k] == before + 1
+    for b in range(B):
+        qcnt = live[b:b + 1]
+        one_i, one_d = cuda_knn.knn_prepared(q[b], preps[b], k, max_sq, qcnt,
+                                             splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(idx[b], one_i) and torch.equal(sqd[b], one_d), b
+        _assert_matches_plain(idx[b], sqd[b], q[b], t[b], mask[b], k, max_sq,
+                              qcnt, int(live[b]))
+    assert (idx[1] == 0).all() and (sqd[1] == max_sq).all()
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_batch_of_one_is_the_single_call(card, k):
+    """The B=1 batched launch is bit-equal to the single call, and so is
+    the C entry called directly with B=1 (``knn_launch_batched``)."""
+    q, t, mask, live = _batch(3, 1, 1024, 8192, 0.5, card)
+    preps, (idx, sqd) = _items(q, t, mask, live, k, 4.0, None)
+    one = cuda_knn.knn_prepared(q[0], preps[0], k, 4.0, live)
+    cuda_knn.build()
+    S = cuda_knn.plan(k, 1024, 8192, card).splits
+    Q, T = 1024, 8192
+    oi = torch.empty((Q, k), dtype=torch.int64, device=card)
+    od = torch.empty((Q, k), dtype=torch.float32, device=card)
+    pd = torch.empty((S, k, Q), dtype=torch.float32, device=card)
+    pi = torch.empty((S, k, Q), dtype=torch.int32, device=card)
+    p = preps[0]
+    err = cuda_knn._lib.knn_launch_batched(
+        q[0].data_ptr(), p.tgt.data_ptr(), p.perm.data_ptr(),
+        p.cnt.data_ptr(), live.data_ptr(), 1, Q, T, k, S, 4.0, pd.data_ptr(),
+        pi.data_ptr(), oi.data_ptr(), od.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for i, d in (one, (oi, od)):
+        assert torch.equal(idx[0], i) and torch.equal(sqd[0], d)
+
+
+def test_vmap_makes_one_batched_call(card):
+    """``torch.func.vmap`` of ``make_knn`` is one kernel call of B items,
+    equal to the per-item calls."""
+    from torch.func import vmap
+    q, t, mask, live = _batch(5, 3, 600, 2048, 0.7, card)
+    before = cuda_knn.launches[5]
+    idx, sqd = vmap(lambda q, t, m, c: cuda_knn.make_knn(t, m, 5, 4.0)(
+        q, c.reshape(1)))(q, t, mask, live)
+    assert cuda_knn.launches[5] == before + 1
+    for b in range(3):
+        i, d = cuda_knn.make_knn(t[b], mask[b], 5, 4.0)(q[b], live[b:b + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(idx[b], i) and torch.equal(sqd[b], d)
+
+
+def test_plan_with_items_needs_fewer_splits(card):
+    cfg = cuda_knn.kernel_config(5)
+    one = cuda_knn.plan(5, 2048, 16384, card)
+    three = cuda_knn.plan(5, 2048, 16384, card, items=3)
+    assert three.splits <= one.splits and three.splits >= one.splits // 3
+    assert three.blocks == 3 * three.query_tiles * three.splits
+    assert three == cuda_knn.choose_splits(
+        2048, 16384, cfg, torch.cuda.get_device_properties(card)
+        .multi_processor_count, cuda_knn.WARPS_PER_SM[5], 3)

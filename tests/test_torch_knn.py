@@ -199,3 +199,77 @@ def test_choose_splits_never_cuts_a_small_set():
         assert cuda_knn.choose_splits(300, Tn, cfg, 132, 64).splits == \
             max(1, Tn // cuda_knn.MIN_SPLIT_TARGETS)
     assert cuda_knn.choose_splits(10 ** 6, 4096, cfg, 132, 64).splits == 1
+
+
+# ---- the batch axis under torch.func.vmap (the CPU rule) ----------------
+
+def _batch(seed, B, Q, Tn):
+    """B clouds with valid-target shares 0.6, 0 and 0.95 (cycled) and mixed
+    live query counts, one of them 0."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 3.0, (B, Q, 3)).astype(np.float32)
+    t = rng.normal(0, 3.0, (B, Tn, 3)).astype(np.float32)
+    share = np.resize([0.6, 0.0, 0.95], B)
+    mask = rng.random((B, Tn)) < share[:, None]
+    live = np.resize([Q, Q // 3, 0], B).astype(np.int32)[:, None]
+    return T(q), T(t), T(mask), T(live)
+
+
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("shared_targets", [False, True])
+def test_op_under_vmap_equals_the_item_loop(k, shared_targets):
+    """``make_knn`` under ``torch.func.vmap`` (batched or shared targets,
+    valid counts including 0) equals the plain version item by item, in
+    every slot, and never launches a kernel on the CPU."""
+    from torch.func import vmap
+    q, t, mask, live = _batch(k, 3, 90, 400)
+    before = dict(cuda_knn.launches)
+    if shared_targets:
+        t, mask = t[0], mask[0]
+        fn = vmap(lambda q, c: cuda_knn.make_knn(t, mask, k, 4.0)(q, c))
+        idx, sqd = fn(q, live)
+    else:
+        fn = vmap(lambda q, t, m, c: cuda_knn.make_knn(t, m, k, 4.0)(q, c))
+        idx, sqd = fn(q, t, mask, live)
+    assert cuda_knn.launches == before
+    for b in range(3):
+        tb_, mb = (t, mask) if shared_targets else (t[b], mask[b])
+        ri, rd = tknn.knn(q[b], tb_, mb, k, 4.0, live[b])
+        assert torch.equal(idx[b], ri) and torch.equal(sqd[b], rd), b
+
+
+def test_knn_op_items_and_nested_vmap():
+    """The op's own item axis and a vmap over it merge into one call: a
+    (2, 3)-batch through vmap of the 3-item op equals the loop."""
+    from torch.func import vmap
+    q, t, mask, live = _batch(7, 6, 40, 300)
+    preps = [cuda_knn.prepare_targets(t[b], mask[b]) for b in range(6)]
+    tgt = torch.stack([p.tgt for p in preps]).reshape(2, 3, 300, 4)
+    perm = torch.stack([p.perm for p in preps]).reshape(2, 3, 300)
+    cnt = torch.cat([p.cnt for p in preps]).reshape(2, 3)
+    idx, sqd = vmap(lambda *a: cuda_knn.knn_op(*a, 5, 4.0, -1))(
+        q.reshape(2, 3, 40, 3), tgt, perm, cnt, live.reshape(2, 3))
+    for b in range(6):
+        ri, rd = tknn.knn(q[b], t[b], mask[b], 5, 4.0, live[b])
+        assert torch.equal(idx.reshape(6, 40, 5)[b], ri)
+        assert torch.equal(sqd.reshape(6, 40, 5)[b], rd)
+
+
+def test_prepare_targets_and_compact_indices_under_vmap():
+    """Both run under ``torch.func.vmap`` (out of place) and equal the item
+    loop; no per-sample fallback."""
+    import warnings
+    from torch.func import vmap
+    from sc_lego_loam_tpu_torch.ops.compact import compact_indices
+    _, t, mask, _ = _batch(9, 3, 1, 500)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        prep = vmap(cuda_knn.prepare_targets)(t, mask)
+        idx, ok = vmap(lambda m: compact_indices(m, 320))(mask)
+    assert not [w for w in caught if "performance drop" in str(w.message)]
+    for b in range(3):
+        one = cuda_knn.prepare_targets(t[b], mask[b])
+        for got, want in zip(prep, one):
+            assert torch.equal(got[b], want)
+        i, o = compact_indices(mask[b], 320)
+        assert torch.equal(idx[b], i) and torch.equal(ok[b], o)
