@@ -28,12 +28,13 @@ Phases, each printing its own lines:
    at k=1, pose-graph re-solve; kNN launches per k, accepted loop factors
    against ground truth, ATE, scans/s, peak memory, and the host syncs of
    loop ticks apart from the rest;
-7. IMU path: the same drive and checks with ``imu.enabled`` and the bench's
-   synthesized 100 Hz IMU stream, one ``push_imu_batch`` a scan (IMU
-   de-skew, rotation prior, roll / pitch blend);
+7. IMU path: ``imu.enabled`` and the bench's synthesized 100 Hz IMU
+   stream, one ``push_imu_batch`` a scan (IMU de-skew, rotation prior, roll
+   / pitch blend), over the drive's first 120 scans (a depth cut for the
+   time limit: no revisit yet, so no loop may close);
 8. runner and export: the drive's first scans written as a MulRan-layout
    directory and run through ``runner.run_mulran`` (native loader built
-   with g++); the IMU path's end state through ``save_checkpoint`` /
+   with g++); the loop path's end state through ``save_checkpoint`` /
    ``load_checkpoint`` into a fresh engine, every field equal, and one
    mapping + loop step of the resumed engine against the original's;
 9. IMU parts and loop tick breakdown: what the IMU adds to a scan
@@ -66,6 +67,26 @@ of one batched step beside the single-sequence functions'.
 recall drive (520 scans, four petals through one centre, three revisit
 events): the same phases and checks over a path that accepts many factors.
 
+The mesh paths (``parallel/mesh.py``, ``parallel/retrieval.py``, the
+``mesh`` arguments) come after the merge.  The machine has one card, so:
+M1 is ``SlamEngine(default_config(), mesh=make_mesh(1, 1))`` in this
+process on NCCL at world size 1 over the drive's first 48 scans, held
+against the loop path's first poses within the card's run-to-run spread
+(a second plain run), and it runs while M2's processes drive (for the
+time limit); M2 is two processes on the one card, joined by gloo
+on CUDA tensors with a 'kf' mesh of 2, each driving the sharded
+``SlamEngine(default_config())`` over the whole drive with half of the
+banks (gates against the loop path's single engine: keyframes within 2,
+the same ``loops_closed``, every factor true, ATE below max(2 x, + 0.15 m)
+of its), then sharded retrieval and the sharded re-solve on the engine's
+own banks against their unsharded forms; M3 is two processes with a 'seq'
+mesh of 2, ``BatchEngine(default_config(), n_seq=2)`` one sequence a
+rank over the batch drive's first 12 steps, against one process's
+``BatchEngine(n_seq=1)`` over each sequence (a rank's own work: within
+twice the run-to-run spread, 0.05 m / 0.5 deg at least) and its
+``BatchEngine(n_seq=2)`` (another batch size: within 0.14 m / 0.75 deg,
+ATE as in M2).  A rank that fails fails the script.
+
 It fails (non-zero exit, no ``ok`` line) when there is no card or any
 check fails.  The second-to-last line is the kernel summary, the last the
 ``ok`` object.
@@ -74,6 +95,7 @@ check fails.  The second-to-last line is the kernel summary, the last the
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -133,6 +155,7 @@ DRIVES = {
                          dict(radius=32.0, petals=4))),
 }
 LOOP_WARMUP = 6
+IMU_SCANS = 120       # IMU path: the drive's first scans (no revisit yet)
 SLICE_SCANS = 12      # loop-off slice: the drive's first scans
 SLICE_WARMUP = 4
 RUNNER_SCANS = 24     # scans written out for the MulRan runner
@@ -462,10 +485,13 @@ def imu_feeder(engine, gt):
     return feed, sizes
 
 
-def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False):
-    """``cfg`` (loop closure on) over the whole drive; with ``with_imu`` the
-    IMU stream is fed scan by scan.  Returns (kNN launches, engine, a
-    summary dict)."""
+def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
+                  revisits=True):
+    """``cfg`` (loop closure on) over the drive ``gt`` gives; with
+    ``with_imu`` the IMU stream is fed scan by scan.  ``revisits``: the
+    drive revisits a place, and at least one loop must close with every
+    factor true; without, none may close and no factor be accepted.
+    Returns (kNN launches, engine, a summary dict)."""
     n_scans = len(gt)
     check(cfg.loop.enabled and cfg.imu.enabled == with_imu,
           f"{label}: not the configuration it names")
@@ -484,13 +510,13 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False):
     ticks = []
     inner = pipeline.loop_step
 
-    def watched_loop_step(config, mst):
+    def watched_loop_step(config, mst, **kw):
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         n0, k1 = len(rec), cuda_knn.launches[1]
         ev0.record()
         h0 = time.perf_counter()
-        out = inner(config, mst)
+        out = inner(config, mst, **kw)
         host_ms = 1e3 * (time.perf_counter() - h0)
         ev1.record()
         ticks.append(dict(w0=n0, w1=len(rec), ev0=ev0, ev1=ev1,
@@ -598,14 +624,19 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False):
     check(est.shape == (n_scans, 4, 4), f"trajectory shape {est.shape}")
     check(bool(np.isfinite(est).all()) and bool(np.isfinite(raw).all()),
           f"{label}: trajectory is not finite")
-    check(loops_closed >= 1, f"{label}: no loop closed")
     check(len(closed) == loops_closed, "closed ticks and loops_closed differ")
-    check(0 < launches[1] <= k1_cap,
-          f"{label}: k=1 launches {launches[1]} not in (0, {k1_cap}]")
+    check(launches[1] <= k1_cap,
+          f"{label}: k=1 launches {launches[1]} over {k1_cap}")
     check(launches[5] == expected5,
           f"{label}: k=5 launches {launches[5]}, expected {expected5}")
-    check(pr["accepted"] >= 1 and pr["precision"] == 1.0,
-          f"{label}: accepted factors not all true: {pr}")
+    if revisits:
+        check(loops_closed >= 1 and launches[1] > 0,
+              f"{label}: no loop closed")
+        check(pr["accepted"] >= 1 and pr["precision"] == 1.0,
+              f"{label}: accepted factors not all true: {pr}")
+    else:
+        check(loops_closed == 0 and pr["accepted"] == 0,
+              f"{label}: a loop closed on a drive without a revisit: {pr}")
     check(ate < ATE_BAR, f"{label}: ATE {ate} >= {ATE_BAR} m")
     # perception_step and mapping_step have no sync but the eigh of
     # solver.degeneracy_projector (one per odometry step and per mapping
@@ -670,10 +701,11 @@ def run_runner(scans, valids, gt, card):
 
 
 def checkpoint_resume(engine, pts, msk, card):
-    """``engine`` (the IMU path's end state, full-size banks) saved, loaded
-    into a fresh engine on the card, every field compared bit for bit; then
-    one more scan: its perception step once, and the mapping + loop step of
-    both engines on the same inputs."""
+    """``engine`` (the loop path's end state: full-size banks, a closed loop
+    in its factor bank) saved, loaded into a fresh engine on the card,
+    every field compared bit for bit; then one more scan: its perception
+    step once, and the mapping + loop step of both engines on the same
+    inputs."""
     cfg = engine.config
     with tempfile.TemporaryDirectory() as folder:
         path = os.path.join(folder, "engine.npz")
@@ -717,9 +749,12 @@ def checkpoint_resume(engine, pts, msk, card):
         m = pipeline.loop_step(cfg, m)
         poses.append(m.pose.cpu().numpy())
     d_m = float(np.linalg.norm(poses[0][:3, 3] - poses[1][:3, 3]))
-    R = poses[0][:3, :3].T @ poses[1][:3, :3]
-    d_deg = float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))))
-    print(f"checkpoint (IMU path's end state, {cfg.cap.max_keyframes}-"
+    # The angle between the rotations from the chord ||R0 - R1|| = 2 sqrt(2)
+    # sin(angle / 2): 0 for equal matrices, where the trace of R0^T R1 is
+    # not 3 once R0 drifts from orthonormal (by 1e-6 a slot: 0.1 deg).
+    chord = np.linalg.norm(poses[0][:3, :3] - poses[1][:3, :3])
+    d_deg = float(np.degrees(2 * np.arcsin(min(1.0, chord / 8 ** 0.5))))
+    print(f"checkpoint (loop path's end state, {cfg.cap.max_keyframes}-"
           f"keyframe banks, np.savez_compressed): file_bytes={size} "
           f"state_bytes={raw} save_s={save_s:.2f} load_s={load_s:.2f} "
           f"fields_differing={len(differing)} host_counters_equal="
@@ -1390,6 +1425,338 @@ def batch_step_launches(batch, single, pts_all, msk_all, card):
     return got
 
 
+
+# ---------------------------------------------------------------------------
+# The mesh paths (parallel/mesh.py, parallel/retrieval.py, every ``mesh``
+# argument).  The machine has one card, so M2 and M3 run two processes on
+# it, joined by gloo, which runs all_reduce / broadcast on CUDA tensors
+# (NCCL refuses two ranks on one card); M1 is one process on NCCL.
+
+MESH1_SCANS = 48          # M1: the headline drive's first scans
+MESH1_FLOOR_M = 5e-3      # M1's tolerance is max(2 x run-to-run, this)
+MESH2_WARMUP = 6
+MESH3_STEPS = 12          # M3: the batch drive's first steps, windows 0, 1
+MESH3_TOL_M = 0.05        # M3 against one process at the same batch size:
+MESH3_TOL_DEG = 0.5       # max(2 x the run-to-run spread, these)
+MESH3_BATCH_M = 0.14      # ... at another batch size: twice the largest of
+MESH3_BATCH_DEG = 0.75    # three runs on the card (0.068 m, 0.375 deg)
+SOLVE_TOL = 1e-3          # sharded against unsharded re-solve (poses6)
+
+
+def _pose_diff(a, b):
+    """Largest position (m) and rotation (deg) difference of two (N,4,4)."""
+    dpos = float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max())
+    R = np.einsum("nji,njk->nik", a[:, :3, :3], b[:, :3, :3])
+    c = np.clip((np.trace(R, axis1=1, axis2=2) - 1) / 2, -1, 1)
+    return dpos, float(np.degrees(np.arccos(c)).max())
+
+
+def run_mesh1(cfg, pts, msk, loop_engine, card):
+    """M1: ``SlamEngine(cfg, mesh=make_mesh(1, 1))`` in this process, NCCL
+    at world size 1 (every collective an identity), over the drive's
+    first scans, held against the loop path's first published poses; the
+    tolerance is the card's run-to-run spread, from a second plain run."""
+    import torch.distributed as dist
+    from sc_lego_loam_tpu_torch.parallel import mesh as pmesh
+
+    n = MESH1_SCANS
+
+    def drive(mesh):
+        eng = SlamEngine(cfg, mesh=mesh)
+        for i in range(n):
+            eng.process_scan(pts[i], msk[i], t=i * 0.1)
+        return eng, eng.trajectory_array(retro_correct=False)
+
+    ref = loop_engine.trajectory_array(retro_correct=False)[:n]
+    _, plain = drive(None)
+    spread = _pose_diff(plain, ref)
+    mesh = pmesh.make_mesh(1, 1)
+    check(dist.get_backend() == "nccl", "M1 is not on NCCL")
+    pmesh.reset_stats()
+    cuda_knn.reset_launches()
+    t0 = time.perf_counter()
+    eng, traj = drive(mesh)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_knn.launches)
+    stats = dict(pmesh.stats)
+    check(eng.shard is not None and eng.shard.size == 1, "M1 has no mesh")
+    dist.destroy_process_group()
+    diff = _pose_diff(traj, ref)
+    tol = max(2 * spread[0], MESH1_FLOOR_M)
+    print(f"mesh M1 (world size 1, NCCL, kf mesh of 1): scans={n} "
+          f"s={wall:.1f} max_d_pos_m={diff[0]:.3e} max_d_rot_deg="
+          f"{diff[1]:.3e} against the loop path's first poses; a second "
+          f"plain run: {spread[0]:.3e} m / {spread[1]:.3e} deg; tolerance "
+          f"{tol:.3e} m; collectives={stats.get('calls', 0)} "
+          f"bytes={stats.get('bytes', 0)} knn_launches={launches} "
+          f"[{card}]", flush=True)
+    check(bool(np.isfinite(traj).all()), "M1: trajectory is not finite")
+    check(diff[0] <= tol, f"M1: {diff[0]} m from the plain engine, over "
+          f"{tol} m")
+    return launches
+
+
+def mesh2_rank(info, data):
+    """M2, one rank: ``SlamEngine(default_config(), mesh=...)`` over the
+    whole drive with half of the banks; then sharded retrieval and the
+    sharded re-solve on the engine's own banks against their unsharded
+    forms.  Writes ``rank<r>.npz`` to ``data``."""
+    from sc_lego_loam_tpu_torch.parallel import mesh as pmesh, retrieval
+
+    r = info["rank"]
+    cfg = default_config()
+    mesh = pmesh.make_mesh(info["world"], 1)
+    pts = torch.from_numpy(np.load(os.path.join(data, "scans.npy"))).cuda()
+    msk = torch.from_numpy(np.load(os.path.join(data, "valids.npy"))).cuda()
+    gt = np.load(os.path.join(data, "gt.npy"))
+    engine = SlamEngine(cfg, mesh=mesh)
+    check(engine.device.type == "cuda", "M2: a rank is not on the card")
+    ticks = {"mapping": [], "loop": []}
+
+    def watch(name):
+        inner = getattr(pipeline, name + "_step")
+
+        def watched(*a, **kw):
+            c0, b0 = pmesh.stats["calls"], pmesh.stats["bytes"]
+            out = inner(*a, **kw)
+            ticks[name].append((pmesh.stats["calls"] - c0,
+                                pmesh.stats["bytes"] - b0))
+            return out
+        setattr(pipeline, name + "_step", watched)
+        return inner
+
+    inners = {name: watch(name) for name in ticks}
+    torch.cuda.synchronize()
+    cuda_knn.reset_launches()
+    pmesh.reset_stats()
+    try:
+        for i in range(MESH2_WARMUP):
+            engine.process_scan(pts[i], msk[i], t=i * 0.1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MESH2_WARMUP, len(gt)):
+            engine.process_scan(pts[i], msk[i], t=i * 0.1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, inner in inners.items():
+            setattr(pipeline, name + "_step", inner)
+    launches = dict(cuda_knn.launches)
+    stats = dict(pmesh.stats)
+    traj = engine.trajectory_array()
+    pr = evaluate.loop_precision_recall(engine, gt, cfg, tol_m=FACTOR_TOL_M)
+    bank_bytes = sum(leaf.numel() * leaf.element_size()
+                     for path, leaf in export.state_leaves(engine.m)
+                     if path in pipeline.SHARDED_LEAVES)
+    peak = torch.cuda.max_memory_allocated()
+
+    # Sharded retrieval against ``detect`` over the whole bank, every 16th
+    # keyframe's descriptor as the query, and the newest one's.
+    bank = engine.bank
+    whole = scan_context.DescriptorBank(
+        pmesh.gather_full(bank.desc, mesh), pmesh.gather_full(bank.ringkey,
+                                                              mesh),
+        bank.count)
+    n_kf = int(bank.count)
+    queries = sorted(set(range(0, n_kf, 16)) | {n_kf - 1})
+    d_dist, hits = 0.0, 0
+    for q in queries:
+        a = scan_context.detect(cfg, whole, whole.desc[q])
+        b = retrieval.detect_sharded(cfg, mesh, bank.desc, bank.count,
+                                     whole.desc[q])
+        check(int(a[0]) == int(b[0]), f"M2: sharded retrieval idx {int(b[0])} "
+              f"!= {int(a[0])} for query {q}")
+        d_dist = max(d_dist, abs(float(a[1]) - float(b[1])))
+        hits += int(a[0]) >= 0
+    check(d_dist <= 1e-5, f"M2: sharded retrieval dist differs by {d_dist}")
+
+    # The sharded re-solve of the engine's graph with its loop factors,
+    # against two unsharded solves (their spread: the scatter-add of the
+    # update rounds run to run on the card).
+    kf, loops = engine.m.kf, engine.m.loops
+    args = (cfg, kf.poses6, kf.count, kf.odom_z, loops)
+    sharded = posegraph.solve(*args, mesh=mesh)
+    plain = [posegraph.solve(*args) for _ in range(2)]
+    n = int(kf.count)
+    d_solve = float((sharded - plain[0])[:n].abs().max())
+    d_plain = float((plain[1] - plain[0])[:n].abs().max())
+    check(d_solve <= SOLVE_TOL, f"M2: sharded solve {d_solve} from the "
+          f"unsharded one")
+    np.savez(os.path.join(data, f"rank{r}.npz"),
+             traj=traj, kf=n_kf, loops_closed=int(engine.loops_closed),
+             accepted=pr["accepted"], true=pr["true_factors"],
+             precision=-1.0 if pr["precision"] is None else pr["precision"],
+             scans_per_s=(len(gt) - MESH2_WARMUP) / wall,
+             bank_bytes=bank_bytes, peak=peak, k5=launches[5],
+             k1=launches[1], calls=stats.get("calls", 0),
+             bytes=stats.get("bytes", 0), map_ticks=np.array(ticks["mapping"]),
+             loop_ticks=np.array(ticks["loop"]).reshape(-1, 2),
+             d_dist=d_dist, queries=len(queries), hits=hits,
+             d_solve=d_solve, d_plain=d_plain, n_loops=int(loops.count))
+
+
+def run_mesh2(scans, valids, gt, loop_engine, lidar, card, background):
+    """M2: two processes on the one card (gloo on CUDA tensors), a 'kf'
+    mesh of 2, ``default_config()`` at full width over the whole drive,
+    each process holding half of the banks.  Gates against the loop
+    path's single engine in this call, as tests/test_engine_mesh.py sets
+    them.  ``background`` runs in this process meanwhile.  Returns each
+    rank's kNN launches, and what ``background`` returned."""
+    from sc_lego_loam_tpu_torch.tools.dryrun_multichip import run_ranks
+
+    d = tempfile.mkdtemp(prefix="mesh2_")
+    for name, x in (("scans", scans), ("valids", valids), ("gt", gt)):
+        np.save(os.path.join(d, name + ".npy"), x)
+    t0 = time.perf_counter()
+    m1 = run_ranks(2, "chip_smoke:mesh2_rank", dict(data=d), device="cuda",
+                   timeout=900, background=background)
+    took = time.perf_counter() - t0
+    rk = [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in (0, 1)]
+    for r in (0, 1):
+        check(np.array_equal(rk[r]["traj"], rk[0]["traj"]),
+              "M2: the ranks' trajectories differ")
+    r0 = rk[0]
+    est = r0["traj"]
+    ate = evaluate.ate_rmse(est, gt[:len(est)])
+    ref_kf = int(loop_engine.m.kf.count)
+    ref_loops = int(loop_engine.loops_closed)
+    mt, lt = r0["map_ticks"], r0["loop_ticks"]
+    print(f"mesh M2 (2 processes on one card, gloo on CUDA tensors, kf mesh "
+          f"of 2, default_config, {len(gt)} scans): s={took:.1f} "
+          f"scans_per_s={float(r0['scans_per_s']):.3f} / "
+          f"{float(rk[1]['scans_per_s']):.3f} (single engine "
+          f"{lidar['scans_per_s']:.3f}) keyframes={int(r0['kf'])} "
+          f"(single {ref_kf}) loops_closed={int(r0['loops_closed'])} "
+          f"(single {ref_loops}) factors accepted={int(r0['accepted'])} "
+          f"true={int(r0['true'])} ate_m={ate:.4f} (single "
+          f"{lidar['ate']:.4f}) [{card}]", flush=True)
+    for r in (0, 1):
+        x = rk[r]
+        print(f"mesh M2 rank {r}: bank_bytes={int(x['bank_bytes'])} "
+              f"peak_mem_bytes={int(x['peak'])} knn_launches k5="
+              f"{int(x['k5'])} k1={int(x['k1'])} collectives="
+              f"{int(x['calls'])} bytes={int(x['bytes'])} [{card}]",
+              flush=True)
+    print(f"mesh M2 collectives per mapping tick: calls={mt[:, 0].mean():.2f}"
+          f" bytes={mt[:, 1].mean():.0f} (n={len(mt)}); per loop tick: "
+          f"calls={lt[:, 0].mean() if len(lt) else 0:.2f} bytes="
+          f"{lt[:, 1].mean() if len(lt) else 0:.0f} (n={len(lt)}, max "
+          f"{lt[:, 1].max() if len(lt) else 0}) [{card}]", flush=True)
+    print(f"mesh M2 on the engine's banks: sharded retrieval = detect for "
+          f"{int(r0['queries'])} queries ({int(r0['hits'])} hits), "
+          f"max_d_dist={float(r0['d_dist']):.3e}; sharded solve "
+          f"({int(r0['n_loops'])} loop factors) max_d_poses6="
+          f"{float(r0['d_solve']):.3e}, two unsharded solves "
+          f"{float(r0['d_plain']):.3e} apart [{card}]", flush=True)
+    check(bool(np.isfinite(est).all()), "M2: trajectory is not finite")
+    check(abs(int(r0["kf"]) - ref_kf) <= 2, "M2: keyframe count differs")
+    check(int(r0["loops_closed"]) == ref_loops, "M2: loops_closed differs")
+    check(int(r0["accepted"]) >= 1 and float(r0["precision"]) == 1.0,
+          "M2: accepted factors not all true")
+    check(ate < max(2.0 * lidar["ate"], lidar["ate"] + 0.15),
+          f"M2: ATE {ate} against the single engine's {lidar['ate']}")
+    return [{k: int(rk[r]["k%d" % k]) for k in (5, 1)} for r in (0, 1)], m1
+
+
+def mesh3_rank(info, data):
+    """M3, one rank: ``BatchEngine(default_config(), n_seq=2, mesh=...)``,
+    one sequence a rank, over the steps; rank 0 writes the gathered
+    trajectories, each rank its kNN launches."""
+    from sc_lego_loam_tpu_torch.parallel import batch as pbatch
+    from sc_lego_loam_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(1, info["world"])
+    pts = torch.from_numpy(np.load(os.path.join(data, "points.npy"))).cuda()
+    msk = torch.from_numpy(np.load(os.path.join(data, "masks.npy"))).cuda()
+    engine = pbatch.BatchEngine(default_config(), n_seq=2, mesh=mesh)
+    check(engine.n_local == 1, "M3: a rank holds more than one sequence")
+    cuda_knn.reset_launches()
+    for t in range(pts.shape[0]):
+        engine.process_scans(pts[t], msk[t], t=t * 0.1)
+    launches = dict(cuda_knn.launches)
+    traj = engine.trajectory_array()
+    np.savez(os.path.join(data, f"rank{info['rank']}.npz"), traj=traj,
+             k5=launches[5], k1=launches[1])
+
+
+def run_mesh3(b_scans, b_valids, b_gt, card):
+    """M3: two processes, a 'seq' mesh of 2, ``BatchEngine(n_seq=2)`` with
+    one sequence each over the batch drive's first steps (windows 0 and
+    1).  Run here meanwhile: one process's ``BatchEngine(n_seq=2)`` over the
+    same steps, and ``BatchEngine(n_seq=1)`` over each sequence alone (a
+    rank's own work in one process; sequence 0 twice, for the run-to-run
+    spread).  The sharded run is held to the one-sequence runs within that
+    spread (at least ``MESH3_TOL_*``), and to the two-sequence run within
+    ``MESH3_BATCH_*``: a vmapped step over one sequence takes other batched
+    kernels than one over two (cuSOLVER, cuBLAS), and the plane fits
+    amplify the difference, as between a ``BatchEngine`` and a
+    ``SlamEngine`` on identical scans."""
+    from sc_lego_loam_tpu_torch.parallel import batch as pbatch
+    from sc_lego_loam_tpu_torch.tools.dryrun_multichip import run_ranks
+
+    T = MESH3_STEPS
+    starts = BATCH_STARTS[:2]
+    points = np.stack([b_scans[s0:s0 + T] for s0 in starts], 1)
+    masks = np.stack([b_valids[s0:s0 + T] for s0 in starts], 1)
+    d = tempfile.mkdtemp(prefix="mesh3_")
+    np.save(os.path.join(d, "points.npy"), points)
+    np.save(os.path.join(d, "masks.npy"), masks)
+
+    def one_process(seqs):
+        eng = pbatch.BatchEngine(default_config(), n_seq=len(seqs))
+        p = torch.from_numpy(points[:, seqs]).cuda()
+        m = torch.from_numpy(masks[:, seqs]).cuda()
+        for t in range(T):
+            eng.process_scans(p[t], m[t], t=t * 0.1)
+        return eng.trajectory_array()
+
+    def references():
+        return (one_process([0, 1]),
+                np.concatenate([one_process([0]), one_process([1])]),
+                one_process([0]))
+
+    t0 = time.perf_counter()
+    both, alone, again = run_ranks(2, "chip_smoke:mesh3_rank", dict(data=d),
+                                   device="cuda", timeout=900,
+                                   background=references)
+    took = time.perf_counter() - t0
+    rk = [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in (0, 1)]
+    got = rk[0]["traj"]
+    check(got.shape == both.shape == alone.shape == (2, T, 4, 4),
+          f"M3: shape {got.shape}")
+    same = [_pose_diff(got[s], alone[s]) for s in (0, 1)]
+    other = [_pose_diff(got[s], both[s]) for s in (0, 1)]
+    spread = _pose_diff(again[0], alone[0])
+    tol = (max(MESH3_TOL_M, 2 * spread[0]), max(MESH3_TOL_DEG, 2 * spread[1]))
+    gts = [b_gt[s0:s0 + T] for s0 in starts]
+    ate = [evaluate.ate_rmse(got[s], gts[s]) for s in (0, 1)]
+    ate_ref = [evaluate.ate_rmse(both[s], gts[s]) for s in (0, 1)]
+
+    def pairs(xs):
+        return ", ".join(f"seq {s} {p:.3e} / {q:.3e}"
+                         for s, (p, q) in enumerate(xs))
+
+    print(f"mesh M3 (2 processes, seq mesh of 2, BatchEngine(n_seq=2) one "
+          f"sequence a rank, {T} steps): s={took:.1f} max_d_pos_m/deg "
+          f"against BatchEngine(n_seq=1) over each sequence: {pairs(same)} "
+          f"(that run twice: {spread[0]:.3e} / {spread[1]:.3e}; tolerance "
+          f"{tol[0]:.3e} m / {tol[1]:.3e} deg); against one process's "
+          f"BatchEngine(n_seq=2): {pairs(other)} (tolerance {MESH3_BATCH_M} "
+          f"m / {MESH3_BATCH_DEG} deg); ate_m {ate[0]:.4f} / {ate[1]:.4f} "
+          f"(one process {ate_ref[0]:.4f} / {ate_ref[1]:.4f}) knn_launches "
+          f"per rank {[(int(x['k5']), int(x['k1'])) for x in rk]} "
+          f"[{card}]", flush=True)
+    check(bool(np.isfinite(got).all()), "M3: trajectory is not finite")
+    for s in (0, 1):
+        check(same[s][0] <= tol[0] and same[s][1] <= tol[1],
+              f"M3: sequence {s} {same[s]} from its one-sequence run")
+        check(other[s][0] <= MESH3_BATCH_M and other[s][1] <= MESH3_BATCH_DEG,
+              f"M3: sequence {s} {other[s]} from the two-sequence run")
+        check(ate[s] < max(2.0 * ate_ref[s], ate_ref[s] + 0.15),
+              f"M3: sequence {s} ATE {ate[s]} against {ate_ref[s]}")
+    return [{k: int(rk[r]["k%d" % k]) for k in (5, 1)} for r in (0, 1)]
+
+
 def check_no_jax():
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "sc_lego_loam_tpu")
@@ -1413,7 +1780,10 @@ def main():
     print(f"card: {card}", flush=True)
 
     scans, valids, gt = make_drive(default_config(), drive, card)
-    b_scans, b_valids, b_gt = make_batch_drive(default_config(), card)
+    # The batch drive's rays are cast in worker processes while this one
+    # builds the kernel and checks it on the card (device-timed).
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    b_drive = pool.submit(make_batch_drive, default_config(), card)
 
     info = cuda_knn.build()
     print(f"build: {info.path} in {info.seconds:.2f} s [{card}]", flush=True)
@@ -1433,6 +1803,8 @@ def main():
     batched_kernel_checks(card)
     small_linalg_times(card)
     prepare_targets_times(card)
+    b_scans, b_valids, b_gt = b_drive.result()
+    pool.shutdown()
 
     def elapsed(after):
         print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {after}",
@@ -1462,10 +1834,13 @@ def main():
         card)
     elapsed("the loop path")
     imu_cfg = base.replace(imu=ImuConfig(enabled=True))
+    imu_pts, imu_msk = pts[:IMU_SCANS], msk[:IMU_SCANS]
     paths["imu"], imu_engine, with_imu = run_loop_path(
-        imu_cfg, "IMU path (imu.enabled, loop closure on)", pts, msk, gt,
-        card, with_imu=True)
-    print(f"IMU path beside the lidar-only loop path: ate_m "
+        imu_cfg, f"IMU path (imu.enabled, loop closure on, the first "
+        f"{IMU_SCANS} scans)", imu_pts, imu_msk, gt[:IMU_SCANS], card,
+        with_imu=True, revisits=False)
+    print(f"IMU path ({IMU_SCANS} scans) beside the lidar-only loop path "
+          f"(240): ate_m "
           f"{with_imu['ate']:.4f} / {lidar['ate']:.4f} ate_as_published_m "
           f"{with_imu['ate_raw']:.4f} / {lidar['ate_raw']:.4f} scans_per_s "
           f"{with_imu['scans_per_s']:.3f} / {lidar['scans_per_s']:.3f} "
@@ -1483,12 +1858,24 @@ def main():
     run_merge(base, batch_engine, b_gt, card)
     elapsed("the merge")
 
+    # M1 runs in this process while M2's two processes drive; each reads
+    # its own kNN counts (M2's ranks in their processes).
+    m2, paths["mesh M1"] = run_mesh2(
+        scans, valids, gt, engine, lidar, card,
+        background=lambda: run_mesh1(base, pts, msk, engine, card))
+    for r, n in enumerate(m2):
+        paths[f"mesh M2 rank {r}"] = n
+    elapsed("mesh M1 and M2")
+    for r, n in enumerate(run_mesh3(b_scans, b_valids, b_gt, card)):
+        paths[f"mesh M3 rank {r}"] = n
+    elapsed("mesh M3")
+
     paths["runner"] = run_runner(scans, valids, gt, card)
     elapsed("the runner")
     # From here on nothing counts as a launch of a path.
-    checkpoint_resume(imu_engine, pts, msk, card)
+    checkpoint_resume(engine, pts, msk, card)
     elapsed("the checkpoint")
-    imu_parts(imu_engine, pts, msk, card)
+    imu_parts(imu_engine, imu_pts, imu_msk, card)
     del imu_engine
     clouds = loop_tick_breakdown(engine, card)
     real_cloud_checks(engine, clouds, card)
@@ -1508,8 +1895,9 @@ def main():
               launches=sum(per_path[1].values()), **icp)
     check(all(n > 0 for n in per_path[5].values()),
           f"a path never launched the k=5 kernel: {per_path[5]}")
-    check(per_path[1]["loop"] > 0 and per_path[1]["imu"] > 0
-          and per_path[1]["batch"] > 0,
+    check(per_path[1]["loop"] > 0 and per_path[1]["batch"] > 0
+          and per_path[1]["mesh M2 rank 0"] > 0
+          and per_path[1]["mesh M2 rank 1"] > 0,
           f"a loop-closing path never launched the k=1 kernel: {per_path[1]}")
     print(f"card: {card}")
     print(json.dumps({"kernels": [k5, k1]}))

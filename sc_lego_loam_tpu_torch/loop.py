@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from . import posegraph
+from . import mapping, posegraph
 from .config import PipelineConfig
 from .mapping import KeyframeStore
 from .models import scan_context
 from .ops import icp, voxel
+from .parallel import mesh as mesh_mod, retrieval
 from .utils import se3
 
 
@@ -50,9 +51,10 @@ def detect_radius(config: PipelineConfig, kf: KeyframeStore,
 
 
 def history_submap(config: PipelineConfig, kf: KeyframeStore,
-                   center: torch.Tensor):
+                   center: torch.Tensor, mesh=None):
     """World-frame submap of +-history_num keyframes around ``center``,
-    voxel-decimated (mO.cpp:896-903, leaf history_leaf).
+    voxel-decimated (mO.cpp:896-903, leaf history_leaf); with a ``mesh``
+    the clouds come from banks sharded over 'kf'.
     Returns (pts (history_pad,3), mask)."""
     cap, lcfg = config.cap, config.loop
     h = lcfg.history_num
@@ -66,35 +68,39 @@ def history_submap(config: PipelineConfig, kf: KeyframeStore,
             + poses[:, None, :3, 3]
         return out.reshape(-1, 3), (mask & ok[:, None]).reshape(-1)
 
-    c, cm = world(kf.corner[idx], kf.corner_mask[idx])
-    s, sm = world(kf.surf[idx], kf.surf_mask[idx])
-    o, om = world(kf.outlier[idx], kf.outlier_mask[idx])
+    c, cm, s, sm, o, om = mapping.keyframe_clouds(kf, idx, mesh)
+    c, cm = world(c, cm)
+    s, sm = world(s, sm)
+    o, om = world(o, om)
     return voxel.voxel_decimate(torch.cat([c, s, o]), torch.cat([cm, sm, om]),
                                 lcfg.history_leaf, cap.history_pad)
 
 
 def keyframe_cloud(config: PipelineConfig, kf: KeyframeStore,
-                   idx: torch.Tensor, place_pose: torch.Tensor):
+                   idx: torch.Tensor, place_pose: torch.Tensor, mesh=None):
     """Corner+surf cloud of keyframe ``idx`` expressed at ``place_pose``
     (mO.cpp:880-894/926-929). Returns (pts (icp_query_pad,3), mask)."""
     n = config.cap.icp_query_pad
-    pts = torch.cat([_row(kf.corner, idx), _row(kf.surf, idx)])[:n]
-    mask = torch.cat([_row(kf.corner_mask, idx),
-                      _row(kf.surf_mask, idx)])[:n]
+    c, cm, s, sm = (x[0] for x in mesh_mod.gather_rows(
+        (kf.corner, kf.corner_mask, kf.surf, kf.surf_mask),
+        idx.reshape(1).long(), mesh))
+    pts = torch.cat([c, s])[:n]
+    mask = torch.cat([cm, sm])[:n]
     out = se3.transform_points(place_pose, pts)
     return torch.where(mask[:, None], out, 0.0), mask
 
 
 def verify(config: PipelineConfig, kf: KeyframeStore,
            cur_idx: torch.Tensor, cand_idx: torch.Tensor,
-           place_pose: torch.Tensor, yaw_init: torch.Tensor | None = None):
+           place_pose: torch.Tensor, yaw_init: torch.Tensor | None = None,
+           mesh=None):
     """ICP-verify a loop hypothesis. Returns (Z (4,4), fitness, accept).
 
     ``yaw_init``: relative yaw from Scan Context retrieval, which seeds the
     ICP so that reverse revisits close too (the reference leaves its
     ICP-with-initial-guess path disabled, mO.cpp:1062-1068)."""
-    src, src_mask = keyframe_cloud(config, kf, cur_idx, place_pose)
-    dst, dst_mask = history_submap(config, kf, cand_idx)
+    src, src_mask = keyframe_cloud(config, kf, cur_idx, place_pose, mesh)
+    dst, dst_mask = history_submap(config, kf, cand_idx, mesh)
     if yaw_init is not None:
         # Scene yawed by +yaw => sensor yawed by -yaw; conjugate into the
         # world frame around the placement pose.
@@ -126,11 +132,11 @@ def verify(config: PipelineConfig, kf: KeyframeStore,
 def verify_and_add(config: PipelineConfig, kf: KeyframeStore,
                    loops: posegraph.LoopFactors, cur: torch.Tensor,
                    idx: torch.Tensor, place: torch.Tensor,
-                   yaw: torch.Tensor | None):
+                   yaw: torch.Tensor | None, mesh=None):
     """Verify one hypothesis and merge its factor into ``loops`` with
     ``torch.where``: a rejected one leaves the bank bit-identical.
     Returns (loops, accepted)."""
-    Z, _, ok = verify(config, kf, cur, idx, place, yaw_init=yaw)
+    Z, _, ok = verify(config, kf, cur, idx, place, yaw_init=yaw, mesh=mesh)
     new = posegraph.add_loop(loops, cur, idx, Z, kf.poses6)
     return posegraph.LoopFactors(
         *(torch.where(ok, b, a) for a, b in zip(loops, new))), ok
@@ -151,7 +157,8 @@ def rs_hypothesis(kf: KeyframeStore, cur: torch.Tensor,
 
 
 def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
-                loops: posegraph.LoopFactors, cur_desc: torch.Tensor):
+                loops: posegraph.LoopFactors, cur_desc: torch.Tensor,
+                mesh=None):
     """One full loop-closure tick (the reference's 1 Hz loopClosureThread,
     mO.cpp:829-839): detection, ICP verification, factor insertion and the
     pose-graph re-solve.
@@ -166,29 +173,41 @@ def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
     the re-solve: a tick without a candidate then costs the retrieval only,
     and an unclosed tick returns the very tensors it was given.  An
     accepted factor is merged with ``torch.where``, so a rejected one
-    leaves the bank bit-identical."""
+    leaves the bank bit-identical.
+
+    With a ``mesh`` the cloud and descriptor banks are this rank's blocks
+    of banks sharded over 'kf': retrieval is ``retrieval.detect_sharded``,
+    the clouds come by ``gather_rows`` and the re-solve shards the loop
+    factors.  Every rank must take the same branch (the next collective
+    would wait forever otherwise); the flags derive from replicated or
+    all-reduced values, and ``mesh.agree`` checks that they do."""
     cur = torch.clamp(kf.count - 1, min=0)
     dev = cur.device
 
     # Scan Context path (mO.cpp:914-949,1053-1093) and radius-search path
     # (mO.cpp:854-873,1005-1048); neither reads what the other writes.
-    sc_idx, _, sc_yaw = scan_context.detect(config, bank, cur_desc)
+    if mesh is None:
+        sc_idx, _, sc_yaw = scan_context.detect(config, bank, cur_desc)
+    else:
+        sc_idx, _, sc_yaw = retrieval.detect_sharded(
+            config, mesh, bank.desc, bank.count, cur_desc)
     rs_idx = detect_radius(config, kf, cur)
-    run_sc, run_rs = torch.stack(
-        [sc_idx >= 0, (rs_idx >= 0) & (rs_idx != sc_idx)]).tolist()
+    run_sc, run_rs = mesh_mod.agree(torch.stack(
+        [sc_idx >= 0, (rs_idx >= 0) & (rs_idx != sc_idx)]), mesh)
 
     closed = torch.zeros((), dtype=torch.bool, device=dev)
     if run_sc:
         # The SC yaw seeds the verification ICP.
         loops, ok = verify_and_add(config, kf, loops, cur,
-                                   *sc_hypothesis(kf, sc_idx), sc_yaw)
+                                   *sc_hypothesis(kf, sc_idx), sc_yaw, mesh)
         closed = closed | ok
     if run_rs:
         loops, ok = verify_and_add(config, kf, loops, cur,
-                                   *rs_hypothesis(kf, cur, rs_idx), None)
+                                   *rs_hypothesis(kf, cur, rs_idx), None,
+                                   mesh)
         closed = closed | ok
 
-    if (run_sc or run_rs) and bool(closed):
+    if (run_sc or run_rs) and mesh_mod.agree(closed, mesh):
         kf = kf._replace(poses6=posegraph.solve(
-            config, kf.poses6, kf.count, kf.odom_z, loops))
+            config, kf.poses6, kf.count, kf.odom_z, loops, mesh=mesh))
     return kf, loops, closed

@@ -26,6 +26,7 @@ from .config import PipelineConfig
 
 from .ops import cuda_knn, solver, voxel
 from .ops.compact import compact
+from .parallel import mesh as mesh_mod
 from .utils import se3
 
 
@@ -52,6 +53,14 @@ class KeyframeStore(NamedTuple):
     count: torch.Tensor        # () int32 high-water
 
 
+# The fields whose rows a mesh shards over 'kf' (the JAX package's
+# ``pipeline._shard_mapper_state``): the keyframe clouds, the memory that
+# grows with the trajectory.  Poses, times, odometry factors and the count
+# stay whole on every rank.
+SHARDED_FIELDS = ("corner", "corner_mask", "surf", "surf_mask", "outlier",
+                  "outlier_mask")
+
+
 class MapState(NamedTuple):
     kf: KeyframeStore
     correction: torch.Tensor   # (4,4) map-from-odom drift correction
@@ -59,9 +68,12 @@ class MapState(NamedTuple):
     last_kf_pose: torch.Tensor  # (4,4) pose at last keyframe insertion
 
 
-def init_state(config: PipelineConfig, device) -> MapState:
+def init_state(config: PipelineConfig, device, mesh=None) -> MapState:
+    """An empty map; with a ``mesh``, the cloud fields hold this rank's
+    K/n rows of banks sharded over 'kf'."""
     cap = config.cap
     K = cap.max_keyframes
+    Kc = K if mesh is None else mesh_mod.bank_sharding(mesh).block(K)[1]
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -71,12 +83,12 @@ def init_state(config: PipelineConfig, device) -> MapState:
 
     kf = KeyframeStore(
         poses6=zeros(K, 6), times=zeros(K),
-        corner=zeros(K, cap.kf_corner_pad, 3),
-        corner_mask=zeros(K, cap.kf_corner_pad, dtype=torch.bool),
-        surf=zeros(K, cap.kf_surf_pad, 3),
-        surf_mask=zeros(K, cap.kf_surf_pad, dtype=torch.bool),
-        outlier=zeros(K, cap.kf_outlier_pad, 3),
-        outlier_mask=zeros(K, cap.kf_outlier_pad, dtype=torch.bool),
+        corner=zeros(Kc, cap.kf_corner_pad, 3),
+        corner_mask=zeros(Kc, cap.kf_corner_pad, dtype=torch.bool),
+        surf=zeros(Kc, cap.kf_surf_pad, 3),
+        surf_mask=zeros(Kc, cap.kf_surf_pad, dtype=torch.bool),
+        outlier=zeros(Kc, cap.kf_outlier_pad, 3),
+        outlier_mask=zeros(Kc, cap.kf_outlier_pad, dtype=torch.bool),
         odom_z=eyes(), odom_pose=eyes(),
         count=zeros(dtype=torch.int32))
     eye = torch.eye(4, device=device)
@@ -97,13 +109,22 @@ def _top_k(score: torch.Tensor, k: int):
     return val[:k], sel[:k]
 
 
-def build_submap(config: PipelineConfig, kf: KeyframeStore):
+def keyframe_clouds(kf: KeyframeStore, idx: torch.Tensor, mesh=None):
+    """The six cloud fields of keyframes ``idx``, in ``SHARDED_FIELDS``
+    order: plain indexing, or with a ``mesh`` one ``gather_rows`` of all
+    six."""
+    return mesh_mod.gather_rows(
+        tuple(getattr(kf, f) for f in SHARDED_FIELDS), idx, mesh)
+
+
+def build_submap(config: PipelineConfig, kf: KeyframeStore, mesh=None):
     """Union of the selected keyframe clouds in the world frame,
     voxel-decimated (extractSurroundingKeyFrames; corner 0.2, surf+outlier
     0.3, mO.cpp:1223-1230).  Loop closure ON: the ``submap_recent_num``
     most recent keyframes (mO.cpp:1127-1166 deque path).  OFF: the nearest
     keyframes within ``submap_search_radius`` of the latest pose
-    (mO.cpp:1167-1222), capped at the same count to keep shapes static."""
+    (mO.cpp:1167-1222), capped at the same count to keep shapes static.
+    With a ``mesh`` the clouds come from banks sharded over 'kf'."""
     cap, m = config.cap, config.mapping
     R = m.submap_recent_num
     dev = kf.poses6.device
@@ -128,9 +149,10 @@ def build_submap(config: PipelineConfig, kf: KeyframeStore):
             + poses[:, None, :3, 3]
         return out, mask & sel_ok[:, None]
 
-    c_pts, c_mask = world(kf.corner[idx], kf.corner_mask[idx])
-    s_pts, s_mask = world(kf.surf[idx], kf.surf_mask[idx])
-    o_pts, o_mask = world(kf.outlier[idx], kf.outlier_mask[idx])
+    c, cm, s, sm, o, om = keyframe_clouds(kf, idx, mesh)
+    c_pts, c_mask = world(c, cm)
+    s_pts, s_mask = world(s, sm)
+    o_pts, o_mask = world(o, om)
 
     corner, corner_mask = voxel.voxel_decimate(
         c_pts.reshape(-1, 3), c_mask.reshape(-1), m.corner_leaf,
@@ -302,12 +324,13 @@ def keyframe_rows(config: PipelineConfig, kf: KeyframeStore,
                   corner: torch.Tensor, corner_mask: torch.Tensor,
                   surf: torch.Tensor, surf_mask: torch.Tensor,
                   outlier: torch.Tensor, outlier_mask: torch.Tensor,
-                  odom_pose: torch.Tensor | None = None):
+                  odom_pose: torch.Tensor | None = None, mesh=None):
     """What a keyframe append writes, without writing it: the slot (1,)
     (``count``, or the last slot of a full bank), whether the bank has room,
     and one new row per bank field, in the store's field order (a full
     bank's row is the slot's own contents).  Reads the bank only, so it
-    runs under ``torch.func.vmap``; the caller writes the rows."""
+    runs under ``torch.func.vmap``; the caller writes the rows.  With a
+    ``mesh`` the cloud fields are this rank's blocks of sharded banks."""
     K = config.cap.max_keyframes
     room = kf.count < K
     i = torch.clamp(kf.count.to(torch.int64), max=K - 1).reshape(1)
@@ -319,7 +342,8 @@ def keyframe_rows(config: PipelineConfig, kf: KeyframeStore,
                corner_mask=corner_mask, surf=surf, surf_mask=surf_mask,
                outlier=outlier, outlier_mask=outlier_mask, odom_z=z,
                odom_pose=odom_pose)
-    rows = {name: torch.where(room, new[name], getattr(kf, name)[i][0])
+    rows = {name: torch.where(room, new[name], mesh_mod.local_row(
+        getattr(kf, name), i, mesh if name in SHARDED_FIELDS else None))
             for name in KeyframeStore._fields[:-1]}
     return i, room, rows
 
@@ -330,17 +354,19 @@ def insert_keyframe(config: PipelineConfig, kf: KeyframeStore,
                     corner: torch.Tensor, corner_mask: torch.Tensor,
                     surf: torch.Tensor, surf_mask: torch.Tensor,
                     outlier: torch.Tensor, outlier_mask: torch.Tensor,
-                    odom_pose: torch.Tensor | None = None):
+                    odom_pose: torch.Tensor | None = None, mesh=None):
     """Guarded keyframe append (saveKeyFramesAndFactor, mO.cpp:1525-1639),
     IN PLACE on the bank tensors.  The candidate is always written at slot
     ``count`` (invisible: readers mask by ``< count``) and ``should`` only
     bumps the count; a full bank rewrites its last slot with its own
-    contents and drops the keyframe.  Returns (kf, inserted)."""
+    contents and drops the keyframe.  With a ``mesh`` a cloud row is
+    written only by the rank that owns the slot.  Returns (kf, inserted)."""
     i, room, rows = keyframe_rows(config, kf, pose, time, corner,
                                   corner_mask, surf, surf_mask, outlier,
-                                  outlier_mask, odom_pose)
+                                  outlier_mask, odom_pose, mesh)
     for name, row in rows.items():
-        getattr(kf, name).index_copy_(0, i, row[None])
+        mesh_mod.owner_write(getattr(kf, name), i, row,
+                             mesh if name in SHARDED_FIELDS else None)
     inserted = should & room
     kf = kf._replace(count=kf.count + inserted.to(torch.int32))
     return kf, inserted

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import PipelineConfig, ScanContextConfig
+from ..parallel import mesh as mesh_mod
 
 _BIG = 1e9
 
@@ -29,9 +30,13 @@ class DescriptorBank(NamedTuple):
     count: torch.Tensor     # () int32
 
 
-def init_bank(config: PipelineConfig, device) -> DescriptorBank:
+def init_bank(config: PipelineConfig, device, mesh=None) -> DescriptorBank:
+    """An empty bank; with a ``mesh``, this rank's K/n rows of a bank
+    sharded over 'kf' (the count stays whole)."""
     sc = config.sc
     K = config.cap.max_keyframes
+    if mesh is not None:
+        K = mesh_mod.bank_sharding(mesh).block(K)[1]
     return DescriptorBank(
         desc=torch.zeros((K, sc.num_ring, sc.num_sector), device=device),
         ringkey=torch.zeros((K, sc.num_ring), device=device),
@@ -71,23 +76,29 @@ def sector_key(desc: torch.Tensor) -> torch.Tensor:
     return desc.mean(-2)
 
 
-def append_rows(bank: DescriptorBank, desc: torch.Tensor, max_k: int):
+def append_rows(bank: DescriptorBank, desc: torch.Tensor, max_k: int,
+                mesh=None):
     """What ``append`` writes, without writing it: (slot (1,), room,
-    desc row, ring-key row); runs under ``torch.func.vmap``."""
+    desc row, ring-key row); runs under ``torch.func.vmap``.  With a
+    ``mesh`` the bank is this rank's block of a bank sharded over 'kf'."""
     room = bank.count < max_k
     i = torch.clamp(bank.count.to(torch.int64), max=max_k - 1).reshape(1)
-    return (i, room, torch.where(room, desc, bank.desc[i][0]),
-            torch.where(room, ring_key(desc), bank.ringkey[i][0]))
+    return (i, room,
+            torch.where(room, desc, mesh_mod.local_row(bank.desc, i, mesh)),
+            torch.where(room, ring_key(desc),
+                        mesh_mod.local_row(bank.ringkey, i, mesh)))
 
 
 def append(bank: DescriptorBank, desc: torch.Tensor, max_k: int,
-           should: torch.Tensor) -> DescriptorBank:
+           should: torch.Tensor, mesh=None) -> DescriptorBank:
     """Guarded append IN PLACE, mirroring mapping.insert_keyframe: the
     descriptor is always written at slot ``count`` and ``should`` gates only
-    the count bump; a full bank rewrites its last slot and drops it."""
-    i, room, desc_row, key_row = append_rows(bank, desc, max_k)
-    bank.desc.index_copy_(0, i, desc_row[None])
-    bank.ringkey.index_copy_(0, i, key_row[None])
+    the count bump; a full bank rewrites its last slot and drops it.  With
+    a ``mesh`` only the rank that owns the slot writes it; every rank
+    advances the (replicated) count."""
+    i, room, desc_row, key_row = append_rows(bank, desc, max_k, mesh)
+    mesh_mod.owner_write(bank.desc, i, desc_row, mesh)
+    mesh_mod.owner_write(bank.ringkey, i, key_row, mesh)
     return bank._replace(count=bank.count + (should & room).to(torch.int32))
 
 

@@ -38,6 +38,7 @@ from ..config import PipelineConfig
 from ..models import scan_context
 from ..ops import icp
 from ..pipeline import _odo_perception
+from . import mesh as mesh_mod
 from ..utils import se3
 from ..utils.profiling import StageTimer
 
@@ -91,17 +92,28 @@ class BatchEngine:
     leading S axis; the fused trajectories live in a device-side
     (S, max_scans, 4, 4) ring fetched once, by ``trajectory_array``.
 
-    ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``.
-    ``mesh`` (sharding the sequences over several cards) is not ported yet,
-    and the batch is lidar-only: the JAX ``BatchEngine`` carries no IMU
-    buffer either (its ``_pre_deskew`` fails there)."""
+    ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``.  The
+    batch is lidar-only: the JAX ``BatchEngine`` carries no IMU buffer
+    either (its ``_pre_deskew`` fails there).
+
+    ``mesh`` (a ``DeviceMesh`` with a 'seq' axis): the sequences are split
+    over the 'seq' group in contiguous blocks, and each rank holds and
+    steps its ``n_local = n_seq / n`` sequences end to end, under the same
+    ``vmap``, with no communication in a step (the JAX package's
+    ``P("seq")``).  Every rank is handed all S sequences' scans and takes
+    its own; ``trajectory_array`` gathers all sequences, and
+    ``sequence_banks`` brings one sequence's banks to every rank for the
+    cross-sequence functions."""
 
     def __init__(self, config: PipelineConfig, n_seq: int, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchEngine(mesh=...): sharding the sequences over several "
-                "cards is not ported yet; run one card's batch")
+        self.mesh = mesh
+        self.seq_shard = None if mesh is None else \
+            mesh_mod.axis_shard(mesh, "seq")
+        if self.seq_shard is not None:
+            assert n_seq % self.seq_shard.size == 0, (
+                f"{n_seq} sequences do not split over "
+                f"{self.seq_shard.size} 'seq' ranks")
         if config.imu.enabled:
             raise ValueError(
                 "BatchEngine runs lidar-only sequences: imu.enabled is not "
@@ -115,21 +127,24 @@ class BatchEngine:
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
         self.n_seq = n_seq
+        self.seq_lo, n = (0, n_seq) if self.seq_shard is None else \
+            self.seq_shard.block(n_seq)
+        self.n_local = n
         dev = self.device
-        self.odo = _stack(odometry.init_state(config, dev), n_seq)
-        self.map = _stack(mapping.init_state(config, dev), n_seq)
-        self.bank = _stack(scan_context.init_bank(config, dev), n_seq)
-        self.loops = _stack(posegraph.init_loops(config, dev), n_seq)
+        self.odo = _stack(odometry.init_state(config, dev), n)
+        self.map = _stack(mapping.init_state(config, dev), n)
+        self.bank = _stack(scan_context.init_bank(config, dev), n)
+        self.loops = _stack(posegraph.init_loops(config, dev), n)
         eye = torch.eye(4, device=dev)
-        self.last_kf_odom = _stack(eye, n_seq)
-        self.loops_closed = torch.zeros(n_seq, dtype=torch.int32, device=dev)
-        self.traj = _stack(_stack(eye, config.cap.max_scans), n_seq)
+        self.last_kf_odom = _stack(eye, n)
+        self.loops_closed = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.traj = _stack(_stack(eye, config.cap.max_scans), n)
         self._scan_i = 0
         self._map_ticks = 0
         self.loop_ticks = 0
         self.last_map_time = -1e9
         self.timer = StageTimer()
-        self._seq = torch.arange(n_seq, device=dev)
+        self._seq = torch.arange(n, device=dev)
 
         cfg = config
         self._perception = vmap(
@@ -153,8 +168,12 @@ class BatchEngine:
         """points: (S,N,3), masks: (S,N) (numpy or tensors).  Returns the
         fused poses (S,4,4) as a device tensor (no host sync outside a loop
         tick; fetch the trajectories at the end with
-        ``trajectory_array``)."""
+        ``trajectory_array``).  With a mesh: all S sequences' scans in,
+        this rank's ``n_local`` poses out."""
         cfg = self.config
+        if self.seq_shard is not None:
+            points = points[self.seq_lo:self.seq_lo + self.n_local]
+            masks = masks[self.seq_lo:self.seq_lo + self.n_local]
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
@@ -224,7 +243,7 @@ class BatchEngine:
         any_sc, any_rs = torch.stack([run_sc, run_rs]).any(-1).tolist()
 
         loops = self.loops
-        closed = torch.zeros(self.n_seq, dtype=torch.bool,
+        closed = torch.zeros(self.n_local, dtype=torch.bool,
                              device=self.device)
         if any_sc:
             new, ok = self._verify_sc(kf, loops, cur, sc_idx, sc_yaw)
@@ -251,10 +270,34 @@ class BatchEngine:
 
     def trajectory_array(self, seq: int | None = None):
         """(S,N,4,4) fused trajectories so far (one fetch), or one
-        sequence's (N,4,4)."""
+        sequence's (N,4,4); with a mesh, every sequence's, gathered over
+        the 'seq' group (every rank of it must call)."""
         n = min(self._scan_i, self.config.cap.max_scans)
-        out = self.traj[:, :n].cpu().numpy()
+        traj = self.traj[:, :n].contiguous()
+        if self.seq_shard is not None:
+            traj = mesh_mod.exchange(traj, self.seq_shard).reshape(
+                (self.n_seq,) + tuple(traj.shape[1:]))
+        out = traj.cpu().numpy()
         return out if seq is None else out[seq]
+
+    def sequence_banks(self, s: int):
+        """(KeyframeStore, DescriptorBank) of sequence ``s``, unstacked,
+        on every rank: with a mesh the rank that holds ``s`` broadcasts
+        them over the 'seq' group (every rank of it must call).  With them
+        ``find_cross_loops``, ``verify_cross_loops``, ``anchor_sequence``
+        and ``merge_solve`` run as they are on a pair held apart."""
+        kf, bank = self.map.kf, self.bank
+        if self.seq_shard is None:
+            return (type(kf)(*(x[s] for x in kf)),
+                    type(bank)(*(x[s] for x in bank)))
+        owner = s // self.n_local
+        i = s - owner * self.n_local if owner == self.seq_shard.index else 0
+
+        def one(state):
+            return type(state)(*(mesh_mod.bring(x[i], owner, self.seq_shard)
+                                 for x in state))
+
+        return one(kf), one(bank)
 
 
 # Keyframes of A scored per vmapped call of ``find_cross_loops``: bounds

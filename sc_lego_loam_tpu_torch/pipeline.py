@@ -38,6 +38,7 @@ from . import frontend, imu as imu_mod, loop, mapping, odometry, posegraph
 from .models import scan_context
 from .ops import features as features_op
 from .ops.compact import compact_indices
+from .parallel import mesh as mesh_mod
 from .utils import se3
 from .utils.profiling import StageTimer
 
@@ -144,10 +145,19 @@ def init_perception_state(config: PipelineConfig, device) -> PerceptionState:
         scan_i=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def init_mapper_state(config: PipelineConfig, device) -> MapperState:
-    ms = mapping.init_state(config, device)
+# MapperState leaves whose rows a mesh shards over 'kf' (the JAX package's
+# ``_shard_mapper_state``); everything else is whole on every rank.
+SHARDED_LEAVES = tuple("kf." + f for f in mapping.SHARDED_FIELDS) + (
+    "bank.desc", "bank.ringkey")
+
+
+def init_mapper_state(config: PipelineConfig, device,
+                      mesh=None) -> MapperState:
+    """An empty mapper state; with a ``mesh``, the ``SHARDED_LEAVES``
+    hold this rank's K/n rows."""
+    ms = mapping.init_state(config, device, mesh)
     return MapperState(
-        kf=ms.kf, bank=scan_context.init_bank(config, device),
+        kf=ms.kf, bank=scan_context.init_bank(config, device, mesh),
         loops=posegraph.init_loops(config, device),
         correction=ms.correction, pose=ms.pose,
         last_kf_pose=ms.last_kf_pose,
@@ -193,14 +203,20 @@ def perception_step(config: PipelineConfig, state: PerceptionState,
 
 def mapping_step(config: PipelineConfig, mst: MapperState,
                  corner_xyz, corner_mask, surf_xyz, surf_mask,
-                 out_pts, out_mask, odom_pose, points, mask, t, imu_buf=None):
+                 out_pts, out_mask, odom_pose, points, mask, t, imu_buf=None,
+                 mesh=None):
     """One mapping tick (reference run(), mO.cpp:1673-1708): submap ->
     scan-to-map LM -> correction -> guarded keyframe insert.  ``imu_buf``
-    is read only with ``imu.enabled``."""
+    is read only with ``imu.enabled``.  With a ``mesh`` the banks are
+    sharded over 'kf': the submap is gathered across the ranks, the
+    downsampled scan is the first rank's (the voxel filter's float sums
+    round run to run on the card), and the owner writes the rows."""
     cfg = config
-    sub_c, sub_cm, sub_s, sub_sm = mapping.build_submap(cfg, mst.kf)
+    sub_c, sub_cm, sub_s, sub_sm = mapping.build_submap(cfg, mst.kf, mesh)
     c, cm, s, sm, o, om = mapping.downsample_scan(
         cfg, corner_xyz, corner_mask, surf_xyz, surf_mask, out_pts, out_mask)
+    if mesh is not None:
+        c, cm, s, sm, o, om = mesh_mod.share((c, cm, s, sm, o, om), mesh)
 
     T_guess = mst.correction @ odom_pose
     pose = mapping.scan_to_map(cfg, T_guess, c, cm, torch.cat([s, o]),
@@ -219,9 +235,10 @@ def mapping_step(config: PipelineConfig, mst: MapperState,
     should = mapping.should_insert_keyframe(cfg, mst.last_kf_pose, pose)
     kf, inserted = mapping.insert_keyframe(
         cfg, mst.kf, should, pose, t, c, cm, s, sm, o, om,
-        odom_pose=odom_pose)
+        odom_pose=odom_pose, mesh=mesh)
     desc = scan_context.make_descriptor(points, mask, cfg.sc)
-    bank = scan_context.append(mst.bank, desc, cfg.cap.max_keyframes, should)
+    bank = scan_context.append(mst.bank, desc, cfg.cap.max_keyframes, should,
+                               mesh)
     return MapperState(
         kf=kf, bank=bank, loops=mst.loops, correction=correction, pose=pose,
         last_kf_pose=torch.where(inserted, pose, mst.last_kf_pose),
@@ -230,15 +247,18 @@ def mapping_step(config: PipelineConfig, mst: MapperState,
         kf_dropped=mst.kf_dropped + (should & ~inserted).to(torch.int32))
 
 
-def loop_step(config: PipelineConfig, mst: MapperState) -> MapperState:
+def loop_step(config: PipelineConfig, mst: MapperState,
+              mesh=None) -> MapperState:
     """One loop-closure tick (loopClosureThread analog, mO.cpp:829-839):
     SC + RS detection, ICP verification, factor insertion, pose-graph
     re-solve and correctPoses (mO.cpp:1642-1664): a closed tick rewrites
     pose, correction and last_kf_pose from the re-solved graph.  The big
-    keyframe cloud banks are only read."""
+    keyframe cloud banks are only read (across the ranks with a
+    ``mesh``)."""
     cur = torch.clamp(mst.kf.count.long() - 1, min=0).reshape(1)
     kf, loops, closed = loop.device_tick(
-        config, mst.kf, mst.bank, mst.loops, mst.bank.desc[cur][0])
+        config, mst.kf, mst.bank, mst.loops,
+        mesh_mod.gather_rows(mst.bank.desc, cur, mesh)[0], mesh)
     new_pose = se3.pose6_to_mat(kf.poses6[cur][0])
     new_corr = new_pose @ se3.mat_inv(mst.last_kf_odom)
     return mst._replace(
@@ -247,6 +267,22 @@ def loop_step(config: PipelineConfig, mst: MapperState) -> MapperState:
         pose=torch.where(closed, new_pose, mst.pose),
         last_kf_pose=torch.where(closed, new_pose, mst.last_kf_pose),
         loops_closed=mst.loops_closed + closed.to(torch.int32))
+
+
+def graph_trajectory(fused, odom, t, kf, kf_n: int):
+    """Every scan re-expressed through its keyframe anchor,
+    X_k @ odom_k^-1 @ odom_i with k the last keyframe at or before scan i
+    (numpy (N,4,4); scans before the first keyframe keep ``fused``)."""
+    kf_t = kf.times[:kf_n].cpu().numpy()
+    kf_pose = se3.pose6_to_mat(kf.poses6[:kf_n]).cpu().numpy()
+    kf_odom = kf.odom_pose[:kf_n].cpu().numpy()
+    k = np.searchsorted(kf_t, t + 1e-6) - 1          # last kf <= t_i
+    out = fused.copy()
+    ok = k >= 0
+    ki = np.clip(k, 0, kf_n - 1)
+    anchor = kf_pose[ki] @ np.linalg.inv(kf_odom[ki])
+    out[ok] = anchor[ok] @ odom[ok]
+    return out
 
 
 def _own(state, device):
@@ -263,12 +299,20 @@ class SlamEngine:
     for ``"cpu"`` (the plain versions of the kernels); without a card the
     default raises.  ``process_scan`` reads a device value only inside a
     loop tick (and in the LM loops' ``eigh``); ``trajectory_array()``
-    fetches the run once."""
+    fetches the run once.
+
+    ``mesh`` (keyword only; a ``DeviceMesh`` with a 'kf' axis from
+    ``parallel.mesh.make_mesh``): every rank of the 'kf' group runs the
+    engine on the same scans and holds K/n rows of the keyframe cloud banks
+    and of the descriptor bank (``SHARDED_LEAVES``), the memory that grows
+    with the trajectory; poses, counts and the every-scan state stay whole
+    on every rank.  The submap and loop-closure gathers, retrieval and the
+    re-solve then run across the ranks (``parallel.mesh``)."""
 
     # Fixed pad so that every per-scan IMU batch has one shape.
     IMU_BATCH_PAD = 32
 
-    def __init__(self, config: PipelineConfig, device="cuda"):
+    def __init__(self, config: PipelineConfig, device="cuda", *, mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -278,8 +322,14 @@ class SlamEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
+        self.mesh = mesh
+        self.shard = mesh_mod.bank_sharding(mesh)
+        if self.shard is not None:
+            assert config.cap.max_keyframes % self.shard.size == 0, (
+                f"max_keyframes {config.cap.max_keyframes} does not split "
+                f"over {self.shard.size} 'kf' ranks")
         self.p = init_perception_state(config, self.device)
-        self.m = init_mapper_state(config, self.device)
+        self.m = init_mapper_state(config, self.device, self.shard)
         self.last_map_time = -1e9
         self.map_ticks = 0
         self.loop_ticks = 0
@@ -398,14 +448,15 @@ class SlamEngine:
                 self.m = mapping_step(
                     cfg, self.m, odo.corner_last.xyz, odo.corner_last.mask,
                     odo.surf_last.xyz, odo.surf_last.mask, out_pts, out_mask,
-                    odom_pose, points, mask, t_dev, self.p.imu)
+                    odom_pose, points, mask, t_dev, self.p.imu,
+                    mesh=self.shard)
             self.map_ticks += 1
             # Loop-closure cadence: every Nth mapping tick (the reference's
             # 1 Hz thread vs its ~3.3 Hz mapping = every ~3rd tick).
             if cfg.loop.enabled and \
                     self.map_ticks % cfg.loop.check_every_ticks == 0:
                 with self.timer.stage("loop"):
-                    self.m = loop_step(cfg, self.m)
+                    self.m = loop_step(cfg, self.m, mesh=self.shard)
                 self.loop_ticks += 1
         if not (self._warned_kf_cap and self._warned_loop_cap):
             self._check_caps_host_bound()
@@ -414,7 +465,10 @@ class SlamEngine:
     def _check_caps_host_bound(self):
         """Warn from the host-side tick counters alone, which bound the
         device counters (keyframe inserts <= mapping ticks; loop factors
-        <= 2 per loop tick): no device read."""
+        <= 2 per loop tick): no device read.  The loop bound counts the
+        loop ticks that ran: the JAX package counts map_ticks //
+        check_every_ticks, loop closure on or off, and so warns of a loop
+        bank that cannot fill when it is off."""
         cfg = self.config
         if not self._warned_kf_cap and \
                 self.map_ticks >= cfg.cap.max_keyframes:
@@ -432,22 +486,30 @@ class SlamEngine:
             self._warned_loop_cap = True
 
     def _check_caps(self):
-        """Fetch the cap counters and warn exactly: keyframes
-        past the cap were dropped, loop factors past it overwrote the
-        highest-residual factor (posegraph.add_loop)."""
+        """Fetch the cap counters and warn exactly, as the JAX package
+        does: both flags are reset, each warning fires at most once a call
+        and sets its flag (so the host-bound warnings stop once an exact
+        one has fired).  Keyframes past the cap were dropped, loop factors
+        past it overwrote the highest-residual factor
+        (posegraph.add_loop)."""
         cfg = self.config
+        self._warned_kf_cap = False
+        self._warned_loop_cap = False
         kf_dropped, loops_count = int(self.m.kf_dropped), \
             int(self.m.loops.count)
-        if kf_dropped > 0:
+        if not self._warned_kf_cap and kf_dropped > 0:
             warnings.warn(
                 f"keyframe bank full ({cfg.cap.max_keyframes}): "
                 f"{kf_dropped} keyframes dropped so far; raise "
                 "CapacityConfig.max_keyframes", RuntimeWarning)
-        if loops_count > cfg.posegraph.max_loops:
+            self._warned_kf_cap = True
+        if not self._warned_loop_cap and \
+                loops_count > cfg.posegraph.max_loops:
             warnings.warn(
                 f"loop-factor bank full ({cfg.posegraph.max_loops}): "
                 "lowest-information loop factors are being overwritten; "
                 "raise PoseGraphConfig.max_loops", RuntimeWarning)
+            self._warned_loop_cap = True
 
     def trajectory_array(self, retro_correct: bool = True):
         """(N,4,4) numpy trajectory so far (one fetch).  ``retro_correct``
@@ -462,18 +524,9 @@ class SlamEngine:
         kf_n = int(self.m.kf.count)
         if kf_n == 0:
             return fused
-        kf_t = self.m.kf.times[:kf_n].cpu().numpy()
-        kf_pose = se3.pose6_to_mat(self.m.kf.poses6[:kf_n]).cpu().numpy()
-        kf_odom = self.m.kf.odom_pose[:kf_n].cpu().numpy()
-        odom = self.p.odom_traj[:n].cpu().numpy()
-        t = self.p.traj_t[:n].cpu().numpy()
-        k = np.searchsorted(kf_t, t + 1e-6) - 1          # last kf <= t_i
-        out = fused.copy()
-        ok = k >= 0
-        ki = np.clip(k, 0, kf_n - 1)
-        anchor = kf_pose[ki] @ np.linalg.inv(kf_odom[ki])
-        out[ok] = anchor[ok] @ odom[ok]
-        return out
+        return graph_trajectory(
+            fused, self.p.odom_traj[:n].cpu().numpy(),
+            self.p.traj_t[:n].cpu().numpy(), self.m.kf, kf_n)
 
     def trajectory_times(self):
         n = int(self.p.scan_i)

@@ -37,6 +37,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from .config import PipelineConfig
+from .parallel import mesh as mesh_mod
 from .utils import se3
 
 
@@ -297,7 +298,7 @@ def gn_step(config: PipelineConfig, X: torch.Tensor, odom_z: torch.Tensor,
 def solve(config: PipelineConfig, poses6: torch.Tensor, count: torch.Tensor,
           odom_z: torch.Tensor, loops: LoopFactors,
           node_mask: torch.Tensor | None = None,
-          free_edges: torch.Tensor | None = None) -> torch.Tensor:
+          free_edges: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """Robust GN re-solve of the full graph.
 
     poses6: (K,6) current keyframe pose estimates (initialization);
@@ -312,7 +313,14 @@ def solve(config: PipelineConfig, poses6: torch.Tensor, count: torch.Tensor,
     ``lax.cond``: same numbers).  A re-solve runs only on a loop tick that
     accepted a factor, and an iteration over a full bank is hundreds of
     launches, so computing all ``max_gn_iterations`` to spare the reads
-    would cost far more than they do."""
+    would cost far more than they do.
+
+    ``mesh`` (a ``DeviceMesh`` with a 'kf' axis, or its ``mesh.Shard``):
+    every rank solves the whole graph, and the first rank's result is
+    broadcast once (``mesh.share``), since the scatter-add of the update
+    rounds run to run on the card.  The loop factors are replicated, so
+    splitting their rows over the ranks, as the JAX package does, would
+    save neither memory nor work."""
     K = poses6.shape[0]
     node_ok = node_mask if node_mask is not None else \
         torch.arange(K, device=poses6.device) < count
@@ -320,6 +328,7 @@ def solve(config: PipelineConfig, poses6: torch.Tensor, count: torch.Tensor,
                  lambda X: gn_step(config, X, odom_z, loops, node_ok,
                                    free_edges),
                  torch.zeros((), dtype=torch.bool, device=poses6.device))
+    (X,) = mesh_mod.share((X,), mesh)
     return torch.where(node_ok[:, None], se3.mat_to_pose6(X), poses6)
 
 

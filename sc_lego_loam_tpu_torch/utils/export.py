@@ -13,13 +13,20 @@ where the saved one stopped: the keyframes' odometry anchors
 ``kf_dropped``, the whole every-scan state (``p.*``: odometry state, IMU
 buffer, trajectory rings) and the host's cadence counters (``host.*``).
 Keys a file lacks keep the values of the engine it is loaded into.
+
+An engine with a mesh (banks sharded over 'kf') writes the same file: the
+sharded leaves are gathered whole (``parallel.mesh.gather_full``, so every
+rank of the group must call) and the first process writes; loading keeps
+each rank's own rows.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import mesh as mesh_mod
 from . import se3
 
 # NPZ key of each MapperState leaf whose key is not its own field name.
@@ -88,9 +95,18 @@ def _mapper_key(path: str) -> str:
     return _MAPPER_KEYS.get(path, path.rsplit(".", 1)[-1])
 
 
+def _sharded(engine, path: str) -> bool:
+    from ..pipeline import SHARDED_LEAVES
+    return getattr(engine, "shard", None) is not None and \
+        path in SHARDED_LEAVES
+
+
 def checkpoint_arrays(engine) -> dict[str, np.ndarray]:
-    """Everything ``save_checkpoint`` writes, by NPZ key."""
-    out = {_mapper_key(path): leaf.cpu().numpy()
+    """Everything ``save_checkpoint`` writes, by NPZ key (a mesh engine's
+    sharded leaves gathered whole: every rank must call)."""
+    out = {_mapper_key(path): (mesh_mod.gather_full(leaf, engine.shard)
+                               if _sharded(engine, path) else leaf
+                               ).cpu().numpy()
            for path, leaf in state_leaves(engine.m)}
     out.update(("p." + path, leaf.cpu().numpy())
                for path, leaf in state_leaves(engine.p))
@@ -100,19 +116,27 @@ def checkpoint_arrays(engine) -> dict[str, np.ndarray]:
 
 
 def save_checkpoint(path: str, engine):
-    """Serialize the engine's state (see the module docstring) to NPZ."""
-    np.savez_compressed(path, **checkpoint_arrays(engine))
+    """Serialize the engine's state (see the module docstring) to NPZ.
+    With a mesh every rank calls and the first process writes."""
+    arrays = checkpoint_arrays(engine)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        np.savez_compressed(path, **arrays)
 
 
 def load_checkpoint(path: str, engine):
     """Restore, in place, engine state saved by ``save_checkpoint`` of this
     package or of the JAX package.  The engine must have the capacities
-    the file was saved with: a key of another shape raises."""
+    the file was saved with: a key of another shape raises.  A mesh
+    engine keeps its own rows of the sharded leaves."""
     with np.load(path) as z:
-        def restore(key, leaf):
+        def restore(key, leaf, sharded=False):
             if key not in z.files:
                 return leaf
             value = z[key]
+            if sharded and value.shape[1:] == tuple(leaf.shape[1:]) and \
+                    value.shape[0] == leaf.shape[0] * engine.shard.size:
+                lo, rows = engine.shard.block(value.shape[0])
+                value = value[lo:lo + rows]
             if value.shape != tuple(leaf.shape):
                 raise ValueError(
                     f"{path}: {key} has shape {value.shape}, the engine's "
@@ -121,7 +145,8 @@ def load_checkpoint(path: str, engine):
                                               dtype=leaf.dtype)
 
         engine.m = _with_leaves(
-            engine.m, lambda p, leaf: restore(_mapper_key(p), leaf))
+            engine.m, lambda p, leaf: restore(_mapper_key(p), leaf,
+                                              _sharded(engine, p)))
         engine.p = _with_leaves(
             engine.p, lambda p, leaf: restore("p." + p, leaf))
         for name in _HOST_FIELDS:
@@ -139,9 +164,13 @@ def global_map_points(engine, max_points: int = 500_000) -> np.ndarray:
     n = int(kf.count)
     if n == 0:
         return np.zeros((0, 3), np.float32)
+    shard = getattr(engine, "shard", None)
+    corner, corner_mask, surf, surf_mask = (
+        mesh_mod.gather_full(x, shard)[:n]
+        for x in (kf.corner, kf.corner_mask, kf.surf, kf.surf_mask))
     T = se3.pose6_to_mat(kf.poses6[:n])
-    pts = se3.transform_points(T, torch.cat([kf.corner[:n], kf.surf[:n]], 1))
-    mask = torch.cat([kf.corner_mask[:n], kf.surf_mask[:n]], 1)
+    pts = se3.transform_points(T, torch.cat([corner, surf], 1))
+    mask = torch.cat([corner_mask, surf_mask], 1)
     out = pts.cpu().numpy()[mask.cpu().numpy()]
     if len(out) > max_points:
         out = out[np.random.default_rng(0).permutation(len(out))[:max_points]]

@@ -240,9 +240,14 @@ def test_batch_equals_single_sequence_functions(pair, port_drive):
 
 
 def test_batch_engine_refuses_mesh_and_imu():
+    """A mesh is taken now (a 'seq' axis of one process holds both
+    sequences; tests/test_torch_batch_mesh.py runs two); the IMU is still
+    refused."""
+    from sc_lego_loam_tpu_torch.parallel import mesh as tmesh
     cfg = tiny_torch()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tb.BatchEngine(cfg, n_seq=2, mesh=object(), device="cpu")
+    eng = tb.BatchEngine(cfg, n_seq=2, device="cpu",
+                         mesh=tmesh.make_mesh(1, 1, device_type="cpu"))
+    assert (eng.n_local, eng.seq_lo) == (2, 0)
     with pytest.raises(ValueError, match="imu"):
         tb.BatchEngine(cfg.replace(imu=dataclasses.replace(
             cfg.imu, enabled=True)), n_seq=2, device="cpu")
