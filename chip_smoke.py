@@ -87,6 +87,23 @@ twice the run-to-run spread, 0.05 m / 0.5 deg at least) and its
 ``BatchEngine(n_seq=2)`` (another batch size: within 0.14 m / 0.75 deg,
 ATE as in M2).  A rank that fails fails the script.
 
+The launch layer (``tools/bench.py``, ``tools/run_capacity.py``,
+``tools/profile_stages.py``) adds: in phase 4 the kernel at the pads of
+``vlp16_config()`` (the 16-beam sensor); after the runner the ORDERED PATH,
+``synthetic_config()`` (beam-ordered scans, reshape projection, no de-skew,
+loop closure on) over the first 96 scans of the bench's ordered figure-8
+(seed 11; rays cast in the background while phase 4 runs) through
+``tools.bench.run_engine`` (ATE, k=5 launches, no sync outside loop ticks
+but the ``eigh``); LATENCY, ``tools.bench.latency_ms`` over the loop
+drive's first 6 + 24 scans (p50 / p95 / p99 / max); the CAPACITY RUNWAY's
+card part (``tools.run_capacity``: the tiny engine at 16,384 keyframes with
+16 scans past the cap, then a second full-size state filled to 16,384
+keyframes from the loop path's, one mapping and one loop step over it, the
+loop bank past its 256 slots and one re-solve; every check a gate, the
+state freed after); and last, ``tools.profile_stages`` on the loop path's
+end state (synchronized, device and host ms, launches and syncs of every
+sub-stage).  An ``elapsed:`` line follows each phase.
+
 It fails (non-zero exit, no ``ok`` line) when there is no card or any
 check fails.  The second-to-last line is the kernel summary, the last the
 ``ok`` object.
@@ -99,7 +116,6 @@ import concurrent.futures
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -111,11 +127,13 @@ import torch
 
 from sc_lego_loam_tpu_torch import (imu as imu_mod, loop, mapping, pipeline,
                                     posegraph, runner)
-from sc_lego_loam_tpu_torch.config import ImuConfig, default_config
+from sc_lego_loam_tpu_torch.config import (ImuConfig, default_config,
+                                           synthetic_config, vlp16_config)
 from sc_lego_loam_tpu_torch.models import scan_context
 from sc_lego_loam_tpu_torch.ops import cuda_knn, icp, knn as plain_knn
 from sc_lego_loam_tpu_torch.ops.compact import compact
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
+from sc_lego_loam_tpu_torch.tools import bench, profile_stages, run_capacity
 from sc_lego_loam_tpu_torch.tools.knn_tune import (graph_ms, ptxas_lines,
                                                    uniform_cloud)
 from sc_lego_loam_tpu_torch.utils import (evaluate, export, native_io, se3,
@@ -124,14 +142,29 @@ from sc_lego_loam_tpu_torch.utils import (evaluate, export, native_io, se3,
 KNN_SOURCE = "sc_lego_loam_tpu_torch/csrc/knn.cu"
 KNN_REPLACES = "sc_lego_loam_tpu/ops/pallas_knn.py:146"
 
-# (name, k, queries, targets, max_sq_dist): the scan-to-map 5-NN at the
-# surf and corner submap pads of default_config(), and the ICP 1-NN at its
-# query and history pads.
-SHAPES = [
-    ("s2m_surf_k5", 5, 12288, 65536, 4.0),
-    ("s2m_corner_k5", 5, 2048, 16384, 4.0),
-    ("icp_k1", 1, 8192, 32768, 64.0),
-]
+
+
+def knn_shapes(cfg, prefix=""):
+    """(name, k, queries, targets, max_sq_dist) of the kernel's calls at
+    ``cfg``'s pads: the scan-to-map 5-NN, surf (a keyframe's surf + outlier
+    pads against the surf submap's) and corner, and the ICP 1-NN (its query
+    pad against the history submap's)."""
+    cap, s2m_sq = cfg.cap, 4.0 * cfg.mapping.max_nn_sq_dist
+    return [
+        (prefix + "s2m_surf_k5", 5, cap.kf_surf_pad + cap.kf_outlier_pad,
+         cap.submap_surf_pad, s2m_sq),
+        (prefix + "s2m_corner_k5", 5, cap.kf_corner_pad,
+         cap.submap_corner_pad, s2m_sq),
+        (prefix + "icp_k1", 1, cap.icp_query_pad, cap.history_pad,
+         icp.NN_MAX_SQ_DIST),
+    ]
+
+
+# default_config(): 12288 x 65536, 2048 x 16384, 8192 x 32768; the 16-beam
+# vlp16_config() (BASELINE.json config 5): 6144 x 32768, 1024 x 8192,
+# 4096 x 16384.
+SHAPES = knn_shapes(default_config())
+VLP16_SHAPES = knn_shapes(vlp16_config(), "vlp16_")
 TIE_REL = 1e-5        # slots this close to a neighbour's distance are ties
 SQD_ATOL = 1e-4
 GRAPH_CALLS = 20      # kernel calls captured in the graph that is timed
@@ -155,6 +188,10 @@ DRIVES = {
                          dict(radius=32.0, petals=4))),
 }
 LOOP_WARMUP = 6
+ORDERED_SCANS = 96    # ordered path: its drive's first scans (no revisit)
+LATENCY_SCANS = 24    # latency: timed scans after the loop path's warm-up (time)
+CAPACITY_EXTRA = 16   # capacity part 1: scans past the cap (the tool's 64)
+PROFILE_REPS = 3      # profile_stages: calls a sub-stage timing (whole: 1)
 IMU_SCANS = 120       # IMU path: the drive's first scans (no revisit yet)
 SLICE_SCANS = 12      # loop-off slice: the drive's first scans
 SLICE_WARMUP = 4
@@ -164,14 +201,6 @@ RESUME_TOL_M = 1e-2   # resumed against original, one mapping + loop step:
 RESUME_TOL_DEG = 0.1  # float atomics in the voxel filter order their sums
 FACTOR_TOL_M = 1.0    # a loop factor is true within this of ground truth
 SYNC_FILES = ("ops/solver.py", "torch/cuda/__init__.py")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def check(ok: bool, what: str):
@@ -805,43 +834,22 @@ def real_cloud_checks(engine, clouds, card):
 
 
 def measure_parts(label, parts, card):
-    """Per (name, fn): host time of a call that ends in a synchronize (mean
-    of 3), the kernels it launches and their summed device time
-    (``torch.profiler``, one call), and the host syncs it makes (sync debug
-    mode, one call).  Run only after the drives: a profiler session slows
-    every later launch of the process."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Per (name, fn), by ``profile_stages.measure`` (every part timed
+    before any is profiled: a profiler session slows every later launch of
+    the process, so this runs only after the drives): host time of a call
+    that ends in a synchronize (mean of 3), the kernels one call launches
+    and their summed device time (``torch.profiler``), and the host syncs it
+    makes (sync debug mode)."""
+    rows = profile_stages.measure([(name, fn, 3) for name, fn in parts],
+                                  "cuda")
     out = {}
-    for name, fn in parts:
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            fn()
-            torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / 3
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            fn()
-            torch.cuda.set_sync_debug_mode("default")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        n_kernels = sum(e.count for e in on_card)
-        dev_ms = sum(getattr(e, "self_device_time_total", 0) or 0
-                     for e in on_card) / 1e3
-        n_syncs = len(sync_warnings(rec))
-        print(f"{label}: {name}: ms_synchronized={host_ms:.3f} "
-              f"kernel_launches={n_kernels} device_ms={dev_ms:.3f} "
-              f"host_syncs={n_syncs} [{card}]", flush=True)
-        check(n_kernels > 0, f"the profiler saw no kernel in: {name}")
-        out[name] = dict(launches=n_kernels, syncs=n_syncs)
+    for r in rows:
+        print(f"{label}: {r['name']}: ms_synchronized={r['sync_ms']:.3f} "
+              f"kernel_launches={r['launches']} "
+              f"device_ms={r['kernel_ms']:.3f} host_syncs={r['syncs']} "
+              f"[{card}]", flush=True)
+        check(r["launches"] > 0, f"the profiler saw no kernel in: {r['name']}")
+        out[r["name"]] = dict(launches=r["launches"], syncs=r["syncs"])
     return out
 
 
@@ -1757,6 +1765,138 @@ def run_mesh3(b_scans, b_valids, b_gt, card):
     return [{k: int(rk[r]["k%d" % k]) for k in (5, 1)} for r in (0, 1)]
 
 
+def make_ordered_drive(lidar, card):
+    """The first ORDERED_SCANS scans of the bench's ordered drive (block
+    ``ordered``, seed 11: a 240-scan figure-8, radius 30 m, 1.05 laps, noise
+    0.01, instantaneous scans in beam order): the rays cast in worker
+    processes, the noise drawn scan by scan from the one rng as
+    ``utils/synthetic.make_sequence`` draws it, so they equal the first
+    scans of its 240."""
+    import multiprocessing
+
+    world = synthetic.default_world(seed=11)
+    poses = synthetic.figure8_trajectory(240, radius=30.0, loops=1.05)
+    poses = poses[:ORDERED_SCANS]
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        ranges = pool.starmap(synthetic._ranges,
+                              [(world, p, lidar) for p in poses])
+    rng = np.random.default_rng(12)
+    scans, valids = zip(*(synthetic.raycast(world, p, lidar, noise=0.01,
+                                            rng=rng, ranges=r)
+                          for p, r in zip(poses, ranges)))
+    took = time.perf_counter() - t0
+    pts0, valid0 = synthetic.raycast(world, poses[0], lidar, noise=0.01,
+                                     rng=np.random.default_rng(12))
+    check(np.array_equal(pts0, scans[0]) and np.array_equal(valid0, valids[0]),
+          "ordered scan 0 from the worker processes differs from the serial "
+          "one")
+    print(f"data: the bench's ordered figure-8 (240 scans, seed 11, beam "
+          f"order), its first {ORDERED_SCANS}, host generation {took:.2f} s "
+          f"in {workers} processes [{card}]", flush=True)
+    return np.stack(scans), np.stack(valids), poses.astype(np.float32)
+
+
+def run_ordered_path(pts, msk, gt, card):
+    """The bench's ordered path: ``synthetic_config()`` (reshape projection
+    of beam-ordered scans, no de-skew, loop closure on) over the ordered
+    drive through ``tools.bench.run_engine`` (the bench's 16 warm-up
+    scans).  Gates: ATE, k=5 launches (6 a mapping tick), no host sync
+    outside loop ticks but the ``eigh``.  Returns the kNN launches."""
+    cfg = synthetic_config()
+    check(cfg.lidar.ordered and not cfg.odom.deskew and cfg.loop.enabled,
+          "synthetic_config changed")
+    rec: list = []
+    in_tick = set()
+    inner = pipeline.loop_step
+
+    def watched_loop_step(config, mst, **kw):
+        n0 = len(rec)
+        out = inner(config, mst, **kw)
+        in_tick.update(id(w) for w in rec[n0:])
+        return out
+
+    cuda_knn.reset_launches()
+    pipeline.loop_step = watched_loop_step
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            rec = caught
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                engine, fps = bench.run_engine(cfg, pts, msk, bench.WARMUP,
+                                               device="cuda")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        pipeline.loop_step = inner
+    launches = dict(cuda_knn.launches)
+    syncs = sync_warnings(rec)
+    other = [w for w in syncs if id(w) not in in_tick]
+    est = engine.trajectory_array()
+    ate = evaluate.ate_rmse(est, gt[:len(est)])
+    expected = expected_k5(cfg, engine.map_ticks)
+    stages = engine.timer.summary(skip_first=bench.WARMUP)
+    print(f"ordered path (synthetic_config: beam order, reshape projection, "
+          f"no de-skew, loop closure on; tools.bench.run_engine): scans="
+          f"{len(pts)} warmup={bench.WARMUP} scans_per_s={fps:.3f} "
+          f"ms_per_scan={1e3 / fps:.3f} keyframes={int(engine.m.kf.count)} "
+          f"mapping_ticks={engine.map_ticks} loop_ticks={engine.loop_ticks} "
+          f"knn_launches_k5={launches[5]} (expected {expected}) "
+          f"knn_launches_k1={launches[1]} loops_closed="
+          f"{int(engine.loops_closed)} ate_m={ate:.4f} host_syncs: loop_ticks="
+          f"{len(syncs) - len(other)} elsewhere={len(other)} (all scans) "
+          f"[{card}]", flush=True)
+    print("ordered path stages, host ms to launch (mean): " + " ".join(
+        f"{name}={1e3 * st['mean']:.2f} (n={st['n']})"
+        for name, st in sorted(stages.items())) + f" [{card}]", flush=True)
+    print_syncs("ordered path, elsewhere", other)
+    check(est.shape == (len(pts), 4, 4) and bool(np.isfinite(est).all()),
+          "ordered path: trajectory is not finite")
+    check(ate < ATE_BAR, f"ordered path: ATE {ate} >= {ATE_BAR} m")
+    check(launches[5] > 0 and launches[5] == expected,
+          f"ordered path: k=5 launches {launches[5]}, expected {expected}")
+    stray = stray_syncs(other)
+    check(not stray, "ordered path: a sync outside the loop ticks other "
+          "than eigh: " + ", ".join(sorted({where(w) for w in stray})))
+    return launches
+
+
+def run_latency(cfg, pts, msk, card):
+    """``tools.bench``'s latency measure (a synchronize after every scan)
+    over the loop drive's first LOOP_WARMUP + LATENCY_SCANS scans."""
+    n = LOOP_WARMUP + LATENCY_SCANS
+    cuda_knn.reset_launches()
+    lat = bench.latency_ms(cfg, pts[:n], msk[:n], LOOP_WARMUP, device="cuda")
+    launches = dict(cuda_knn.launches)
+    print(f"latency (tools.bench.latency_ms, default_config, a synchronize "
+          f"after every scan, loop ticks included): {lat} "
+          f"knn_launches={launches} [{card}]", flush=True)
+    check(lat is not None and lat["scans"] == LATENCY_SCANS
+          and all(np.isfinite(lat[k]) and lat[k] > 0
+                  for k in ("p50", "p95", "p99", "max")),
+          f"latency: {lat}")
+    return launches
+
+
+def run_capacity_card(engine, scans, valids, card):
+    """``tools.run_capacity`` on the card: part 1 at the tool's settings
+    with CAPACITY_EXTRA scans past the cap, part 2 on a second full-size
+    state filled from the loop path's keyframes (``engine``, its drive
+    ``scans``), the loop bank past its slots.  Every check of the tool is a
+    gate; the second state is freed on return."""
+    cuda_knn.reset_launches()
+    try:
+        run_capacity.part1("cuda", card, extra=CAPACITY_EXTRA)
+        run_capacity.part2("cuda", card, engine, scans, valids,
+                           cfg=engine.config)
+    except RuntimeError as err:
+        check(False, str(err))
+    torch.cuda.empty_cache()
+    return dict(cuda_knn.launches)
+
+
 def check_no_jax():
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "sc_lego_loam_tpu")
@@ -1773,17 +1913,19 @@ def main():
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    card = card_line()
+    card = bench.card_line("cuda")
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     print(f"card: {card}", flush=True)
 
     scans, valids, gt = make_drive(default_config(), drive, card)
-    # The batch drive's rays are cast in worker processes while this one
-    # builds the kernel and checks it on the card (device-timed).
+    # The batch drive's and the ordered drive's rays are cast in worker
+    # processes while this one builds the kernel and checks it on the card
+    # (device-timed).
     pool = concurrent.futures.ThreadPoolExecutor(1)
     b_drive = pool.submit(make_batch_drive, default_config(), card)
+    o_drive = pool.submit(make_ordered_drive, synthetic_config().lidar, card)
 
     info = cuda_knn.build()
     print(f"build: {info.path} in {info.seconds:.2f} s [{card}]", flush=True)
@@ -1799,11 +1941,15 @@ def main():
     results = [kernel_vs_plain(name, k, *uniform_cloud(seed, Q, T), max_sq,
                                card)
                for seed, (name, k, Q, T, max_sq) in enumerate(SHAPES)]
+    vlp16 = [kernel_vs_plain(name, k, *uniform_cloud(seed, Q, T), max_sq,
+                             card)
+             for seed, (name, k, Q, T, max_sq) in enumerate(VLP16_SHAPES, 3)]
     tie_and_small_count_checks(card)
     batched_kernel_checks(card)
     small_linalg_times(card)
     prepare_targets_times(card)
     b_scans, b_valids, b_gt = b_drive.result()
+    o_scans, o_valids, o_gt = o_drive.result()
     pool.shutdown()
 
     def elapsed(after):
@@ -1872,6 +2018,14 @@ def main():
 
     paths["runner"] = run_runner(scans, valids, gt, card)
     elapsed("the runner")
+    paths["ordered"] = run_ordered_path(torch.from_numpy(o_scans).cuda(),
+                                        torch.from_numpy(o_valids).cuda(),
+                                        o_gt, card)
+    elapsed("the ordered path")
+    paths["latency"] = run_latency(base, pts, msk, card)
+    elapsed("latency")
+    paths["capacity"] = run_capacity_card(engine, scans, valids, card)
+    elapsed("the capacity runway")
     # From here on nothing counts as a launch of a path.
     checkpoint_resume(engine, pts, msk, card)
     elapsed("the checkpoint")
@@ -1880,6 +2034,12 @@ def main():
     clouds = loop_tick_breakdown(engine, card)
     real_cloud_checks(engine, clouds, card)
     batch_step_launches(batch_engine, engine, b_pts, b_msk, card)
+    elapsed("the breakdowns")
+    rows = profile_stages.profile_engine(engine, scans[-1], valids[-1],
+                                         len(scans) * 0.1, card, PROFILE_REPS)
+    check(all(r["launches"] > 0 for r in rows),
+          "profile_stages: a sub-stage launched no kernel")
+    elapsed("profile_stages")
     check_no_jax()
     elapsed("everything")
 
@@ -1890,9 +2050,11 @@ def main():
           f"[{card}]", flush=True)
     k5 = dict(name="knn_topk_k5", **common,
               launches=sum(per_path[5].values()), **surf)
-    k5["max_abs_err"] = max(surf["max_abs_err"], corner["max_abs_err"])
+    k5["max_abs_err"] = max(surf["max_abs_err"], corner["max_abs_err"],
+                            vlp16[0]["max_abs_err"], vlp16[1]["max_abs_err"])
     k1 = dict(name="knn_topk_k1", **common,
               launches=sum(per_path[1].values()), **icp)
+    k1["max_abs_err"] = max(icp["max_abs_err"], vlp16[2]["max_abs_err"])
     check(all(n > 0 for n in per_path[5].values()),
           f"a path never launched the k=5 kernel: {per_path[5]}")
     check(per_path[1]["loop"] > 0 and per_path[1]["batch"] > 0

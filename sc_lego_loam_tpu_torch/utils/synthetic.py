@@ -10,8 +10,8 @@ sensor poses, producing scans in the sensor frame with exact beam geometry.
 Host-side numpy: data generation is not on the device hot path.  This is
 the package's own copy of ``sc_lego_loam_tpu/utils/synthetic.py`` and gives
 the same arrays, bit for bit, for the same arguments; ``make_sequence`` can
-also cast the rays of motion-skewed scans in worker processes
-(``workers``), which changes no value.
+also cast the rays in worker processes (``workers``), which changes no
+value.
 """
 
 from __future__ import annotations
@@ -123,22 +123,33 @@ def _ray_cylinders(o, d, cyls):
     return np.where(hit, t, _INF).min(-1)
 
 
+def _ranges(world: World, pose: np.ndarray, lidar: LidarConfig) -> np.ndarray:
+    """Noise-free ranges (H,W) of one instantaneous scan: the ray casting
+    of ``raycast``, which draws nothing from an rng and so can run in any
+    process."""
+    R, p = pose[:3, :3], pose[:3, 3]
+    dirs_w = beam_directions(lidar) @ R.T
+    return np.minimum.reduce([
+        _ray_ground(p, dirs_w, world.ground_z),
+        _ray_boxes(p, dirs_w, world.boxes),
+        _ray_cylinders(p, dirs_w, world.cylinders),
+    ])
+
+
 def raycast(world: World, pose: np.ndarray, lidar: LidarConfig,
-            noise: float = 0.0, rng=None, drop_rate: float = 0.0):
+            noise: float = 0.0, rng=None, drop_rate: float = 0.0,
+            ranges: np.ndarray | None = None):
     """Raycast one scan from a 4x4 world-from-sensor pose.
+
+    ``ranges``: the scan's ``_ranges`` when already cast (by a worker
+    process of ``make_sequence``).
 
     Returns (points, valid): points (n_scan*horizon, 3) in the SENSOR frame
     (invalid rays zeroed), valid bool mask. Points are beam-ordered; callers
     that want an unordered cloud should shuffle.
     """
-    R, p = pose[:3, :3], pose[:3, 3]
     dirs_s = beam_directions(lidar)                       # sensor frame
-    dirs_w = dirs_s @ R.T
-    t = np.minimum.reduce([
-        _ray_ground(p, dirs_w, world.ground_z),
-        _ray_boxes(p, dirs_w, world.boxes),
-        _ray_cylinders(p, dirs_w, world.cylinders),
-    ])
+    t = ranges if ranges is not None else _ranges(world, pose, lidar)
     valid = (t > lidar.min_range) & (t < min(lidar.max_range, 1e8))
     if rng is None:
         rng = np.random.default_rng(0)
@@ -363,9 +374,9 @@ def make_sequence(lidar: LidarConfig, n_scans: int, *, seed: int = 0,
     Ground truth for scan i is then its SCAN-END pose (odometry tracks
     scan-end frames, TransformToEnd fA.cpp:885-953).
 
-    ``workers`` > 1 casts the rays of skewed scans in that many processes;
-    the noise and the shuffle are still drawn here, scan by scan from the
-    one rng, so the arrays equal the serial ones.
+    ``workers`` > 1 casts the rays in that many processes; the noise and
+    the shuffle are still drawn here, scan by scan from the one rng, so the
+    arrays equal the serial ones.
 
     Returns (scans, valids, poses): scans (n, N, 3) sensor-frame clouds,
     valids (n, N) masks, poses (n, 4, 4) ground-truth world-from-sensor.
@@ -382,11 +393,15 @@ def make_sequence(lidar: LidarConfig, n_scans: int, *, seed: int = 0,
         raise ValueError(trajectory)
     rng = np.random.default_rng(seed + 1)
     ranges = [None] * n_scans
-    if skew and workers > 1:
-        jobs = [(world, poses[i], poses[i + 1], lidar)
-                for i in range(n_scans)]
+    if workers > 1:
+        if skew:
+            cast, jobs = _skewed_ranges, [(world, poses[i], poses[i + 1],
+                                           lidar) for i in range(n_scans)]
+        else:
+            cast, jobs = _ranges, [(world, poses[i], lidar)
+                                   for i in range(n_scans)]
         with multiprocessing.get_context("spawn").Pool(workers) as pool:
-            ranges = pool.starmap(_skewed_ranges, jobs)
+            ranges = pool.starmap(cast, jobs)
     scans, valids = [], []
     for i in range(n_scans):
         if skew:
@@ -394,7 +409,8 @@ def make_sequence(lidar: LidarConfig, n_scans: int, *, seed: int = 0,
                                         lidar, noise=noise, rng=rng,
                                         ranges=ranges[i])
         else:
-            pts, valid = raycast(world, poses[i], lidar, noise=noise, rng=rng)
+            pts, valid = raycast(world, poses[i], lidar, noise=noise, rng=rng,
+                                 ranges=ranges[i])
         if shuffle:
             perm = rng.permutation(pts.shape[0])
             pts, valid = pts[perm], valid[perm]

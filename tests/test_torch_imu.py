@@ -79,7 +79,7 @@ STREAMS = {
 def _pushed(name):
     que_len, pad, batches, dts, rule = STREAMS[name]
     rng = np.random.default_rng(len(name))
-    jb, tb = ji.init_buffer(que_len), ti.init_buffer(que_len)
+    jb, tb = ji.init_buffer(que_len), ti.init_buffer(que_len, "cpu")
     t_end = 0.0
     for b in range(batches):
         ts, rpy, acc, gyro = _stream(100 * len(name) + b, pad, dts)
@@ -119,7 +119,7 @@ def test_push_one_sample_matches_jax():
     one sample at a time the sums have a single order, so shift and velo
     are held to 1e-7."""
     ts, rpy, acc, gyro = _stream(3, 40, [0.01, 0.01, 0.3, -0.01])
-    jb, tb = ji.init_buffer(32), ti.init_buffer(32)
+    jb, tb = ji.init_buffer(32), ti.init_buffer(32, "cpu")
     for k in range(len(ts)):
         jb = ji.push(jb, jnp.float32(ts[k]), jnp.asarray(rpy[k]),
                      jnp.asarray(acc[k]), jnp.asarray(gyro[k]))
@@ -196,7 +196,8 @@ def test_readers_match_jax(name):
 
 def test_interp_on_an_empty_buffer_is_finite():
     for a, b in zip(ji._interp(ji.init_buffer(8), jnp.float32([0.0, 1.0])),
-                    ti._interp(ti.init_buffer(8), T(np.float32([0.0, 1.0])))):
+                    ti._interp(ti.init_buffer(8, "cpu"),
+                               T(np.float32([0.0, 1.0])))):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
@@ -204,7 +205,7 @@ def test_interp_on_an_empty_buffer_is_finite():
 
 def _flat_buffer(n, que_len, rpy_of=lambda t: (0.0, 0.0, 0.0),
                  acc=(0.0, 0.0, 9.81)):
-    buf = ti.init_buffer(que_len)
+    buf = ti.init_buffer(que_len, "cpu")
     for k in range(n):
         t = k * 0.01
         buf = ti.push(buf, torch.tensor(t), torch.tensor(rpy_of(t)),

@@ -4,6 +4,7 @@ numbers for the same samples, the engine records its three stages, and
 
 import json
 import os
+import types
 
 import numpy as np
 import torch
@@ -11,6 +12,7 @@ import torch
 from sc_lego_loam_tpu.utils import profiling as jprof
 from sc_lego_loam_tpu_torch.config import tiny_test_config
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
+from sc_lego_loam_tpu_torch.tools import profile_stages
 from sc_lego_loam_tpu_torch.utils import profiling as tprof
 
 torch.set_num_threads(1)
@@ -53,3 +55,43 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in e.key for e in prof.key_averages())
     with open(os.path.join(logdir, "trace.json")) as f:
         assert json.load(f)["traceEvents"]
+
+
+def test_one_profiler_session_splits_by_part():
+    """``profile_stages.split_by_part`` gives each part of one session its
+    own events (CPU ops stand in for the card's kernels here)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.ones(4)
+    adds = [3, 0, 5]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i, n in enumerate(adds):
+            with record_function(f"{profile_stages.PART_TAG}{i}"):
+                for _ in range(n):
+                    x = torch.add(x, 1)
+                torch.mul(x, 2)
+    got = profile_stages.split_by_part(prof.events(), len(adds),
+                                       lambda e: e.name == "aten::add")
+    assert [n for n, _ in got] == adds
+    assert all(ms >= 0 for _, ms in got)
+    muls = profile_stages.split_by_part(prof.events(), len(adds),
+                                        lambda e: e.name == "aten::mul")
+    assert [n for n, _ in muls] == [1, 1, 1]
+
+    # The card's kernels can read a few ms early or late against the
+    # host's ranges; parts GAP_S apart keep each kernel with its own part.
+    def ev(name, start, end):
+        span = types.SimpleNamespace(start=start, end=end,
+                                     elapsed_us=lambda: end - start)
+        return types.SimpleNamespace(name=name, time_range=span)
+
+    gap = 1e6 * profile_stages.GAP_S
+    spans = [(gap * (i + 1), gap * (i + 1) + 4000.0) for i in range(3)]
+    events = [ev(f"{profile_stages.PART_TAG}{i}", a, b)
+              for i, (a, b) in enumerate(spans)]
+    for i, (a, b) in enumerate(spans):
+        for skew in (-5000.0, 0.0, 5000.0):
+            events += [ev("kernel", a + 10 + skew, a + 30 + skew)] * (i + 1)
+    got = profile_stages.split_by_part(events, 3, lambda e: e.name == "kernel")
+    assert [n for n, _ in got] == [3, 6, 9]
+    np.testing.assert_allclose([ms for _, ms in got], [0.06, 0.12, 0.18])

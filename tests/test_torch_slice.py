@@ -188,10 +188,11 @@ import sc_lego_loam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 33, names
+assert len(names) >= 36, names
 for name in ('imu', 'runner', 'utils.profiling', 'utils.mulran',
              'utils.native_io', 'utils.export', 'tools.run_synthetic',
-             'tools.run_mulran'):
+             'tools.run_mulran', 'tools.bench', 'tools.profile_stages',
+             'tools.run_capacity'):
     assert 'sc_lego_loam_tpu_torch.' + name in names, name
 from sc_lego_loam_tpu_torch.config import ImuConfig, tiny_test_config
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
