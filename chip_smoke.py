@@ -104,6 +104,24 @@ state freed after); and last, ``tools.profile_stages`` on the loop path's
 end state (synchronized, device and host ms, launches and syncs of every
 sub-stage).  An ``elapsed:`` line follows each phase.
 
+One dispatch a step (``graphs.py``): every ``SlamEngine`` above runs its
+``perception_step`` and ``mapping_step`` as CUDA graph replays (the
+default on the card; ``eager=True`` is the op-by-op path), and the
+degeneracy guard's ``eigh`` and the ICP fit's ``svd`` are the hand-written
+``csrc/symeig.cu`` (Horn's quaternion method for the fit), so a path reads
+no device value outside its loop ticks: the sync gates allow none.  In
+phase 4 the SYMEIG kernel against its plain version (``torch.linalg.eigh``
+on CPU copies) at B=1 for n = 3, 4, 6 and on 4096 random SPD 6x6 matrices
+with condition numbers up to 1e8 (eigenvalues, reconstruction,
+orthogonality, the degeneracy projector and its flag), timed beside its
+bound and ``torch.linalg.eigh`` on the card.  After the loop path,
+REPEATABLE: two eager engines over the loop drive's first 48 scans must
+agree bit for bit, and a graphed engine with them (and with the loop
+path's first published poses); the graphs' nodes, capture time and pool
+memory print; then 24 eager scans under
+``torch.use_deterministic_algorithms(True, warn_only=True)`` list what
+torch still calls nondeterministic.
+
 It fails (non-zero exit, no ``ok`` line) when there is no card or any
 check fails.  The second-to-last line is the kernel summary, the last the
 ``ok`` object.
@@ -125,12 +143,13 @@ from collections import Counter
 import numpy as np
 import torch
 
-from sc_lego_loam_tpu_torch import (imu as imu_mod, loop, mapping, pipeline,
-                                    posegraph, runner)
+from sc_lego_loam_tpu_torch import (graphs, imu as imu_mod, loop, mapping,
+                                    pipeline, posegraph, runner)
 from sc_lego_loam_tpu_torch.config import (ImuConfig, default_config,
                                            synthetic_config, vlp16_config)
 from sc_lego_loam_tpu_torch.models import scan_context
-from sc_lego_loam_tpu_torch.ops import cuda_knn, icp, knn as plain_knn
+from sc_lego_loam_tpu_torch.ops import (cuda_knn, icp, knn as plain_knn,
+                                        solver, symeig)
 from sc_lego_loam_tpu_torch.ops.compact import compact
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
 from sc_lego_loam_tpu_torch.tools import bench, profile_stages, run_capacity
@@ -141,6 +160,9 @@ from sc_lego_loam_tpu_torch.utils import (evaluate, export, native_io, se3,
 
 KNN_SOURCE = "sc_lego_loam_tpu_torch/csrc/knn.cu"
 KNN_REPLACES = "sc_lego_loam_tpu/ops/pallas_knn.py:146"
+# symeig replaces no Pallas kernel: jnp.linalg.eigh inside the jitted steps.
+SYMEIG_SOURCE = "sc_lego_loam_tpu_torch/csrc/symeig.cu"
+SYMEIG_REPLACES = "sc_lego_loam_tpu/ops/solver.py:156"
 
 
 
@@ -200,7 +222,31 @@ ATE_BAR = 1.0         # the verify recipe's PASS bar (m)
 RESUME_TOL_M = 1e-2   # resumed against original, one mapping + loop step:
 RESUME_TOL_DEG = 0.1  # float atomics in the voxel filter order their sums
 FACTOR_TOL_M = 1.0    # a loop factor is true within this of ground truth
-SYNC_FILES = ("ops/solver.py", "torch/cuda/__init__.py")
+# The only sync a path may show outside its loop ticks: the watch's own
+# switch back to the default mode (torch/cuda/__init__.py).
+SYNC_FILES = ("torch/cuda/__init__.py",)
+SYMEIG_TOL = 1e-5     # eigenvalues (x max|lambda|), reconstruction,
+                      # orthogonality and projectors, against the plain
+SYMEIG_BATCH = 4096   # the conditioned batch: random SPD 6x6, condition
+SYMEIG_COND = 1e8     # numbers log-uniform up to this
+# H100 SXM data sheet, fp64 outside the tensor cores (the kernel's type).
+PEAK_FP64_FLOPS = 34e12
+REPEAT_SCANS = 48     # repeatable: the loop drive's first scans, 3 runs
+DET_SCANS = 24        # ... and the deterministic-mode listing's
+COPY_LIMIT = 1 << 20  # no leaf this large is copied into a graph per step
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    cuda_knn.reset_launches()
+    symeig.reset_launches()
+
+
+def launch_counts() -> dict:
+    """kNN calls by k (1, 5) and symeig launches ("symeig", all sizes)."""
+    out = dict(cuda_knn.launches)
+    out["symeig"] = sum(symeig.launches.values())
+    return out
 
 
 def check(ok: bool, what: str):
@@ -372,16 +418,165 @@ def tie_and_small_count_checks(card):
 
 
 def small_linalg_times(card):
-    """The ICP's rigid fit: a batch-1 3x3 ``torch.linalg.svd`` on the card,
-    and the whole weighted fit at the ICP's query pad."""
+    """The ICP's rigid fit by Horn's method: the 4x4 ``symeig`` kernel
+    alone (device time, a graph of calls), and the whole weighted fit at
+    the ICP's query pad (host clock included: its ~20 small kernels)."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    cov = torch.randn(3, 3, device="cuda", generator=g)
     src = torch.randn(8192, 3, device="cuda", generator=g)
     w = torch.ones(8192, device="cuda")
-    svd_ms = time_ms(lambda: torch.linalg.svd(cov), 50)
+    n4 = torch.randn(4, 4, device="cuda", generator=g)
+    n4 = n4 + n4.T
+    eig4_ms = graph_ms(lambda: symeig.launch(n4), GRAPH_CALLS)
     fit_ms = time_ms(lambda: se3.best_fit_transform(src, src + 0.1, w), 50)
-    print(f"linalg: svd_3x3_ms={svd_ms:.4f} best_fit_transform_8192_ms="
-          f"{fit_ms:.4f} (15 fits per ICP) [{card}]", flush=True)
+    print(f"linalg: symeig_4x4_ms={eig4_ms:.4f} (device, graph of "
+          f"{GRAPH_CALLS} calls) best_fit_transform_8192_ms={fit_ms:.4f} "
+          f"(Horn, host clock; 15 fits per ICP) [{card}]", flush=True)
+
+
+def spd_batch(rng, B, n, cond_max):
+    """B random symmetric positive definite n x n float32 matrices: random
+    orthonormal eigenvectors, eigenvalues spread over a condition number
+    log-uniform in [1, cond_max] (both ends taken), scales 1e-2 .. 1e4."""
+    Q, _ = np.linalg.qr(rng.normal(size=(B, n, n)))
+    cond = 10.0 ** rng.uniform(0, np.log10(cond_max), B)
+    scale = 10.0 ** rng.uniform(-2, 4, B)
+    t = rng.random((B, n))
+    t[:, 0], t[:, 1] = 0.0, 1.0
+    evals = scale[:, None] * cond[:, None] ** -t
+    A = (Q * evals[:, None, :]) @ Q.transpose(0, 2, 1)
+    return ((A + A.transpose(0, 2, 1)) / 2).astype(np.float32)
+
+
+def symeig_flops(n, sweeps):
+    """fp64 operations of the Jacobi kernel on one matrix that took
+    ``sweeps`` sweeps: each sweep's off-diagonal sum (2 a pair) and its
+    n(n-1)/2 rotations (~16 for the angle, 8 for each of the 2n-2 entries
+    of A and V a rotation updates), the last convergence test, the sort."""
+    pairs = n * (n - 1) // 2
+    rotation = 16 + 8 * (2 * n - 2)
+    return sweeps * pairs * (2 + rotation) + 2 * pairs + pairs * 2 * (n + 1)
+
+
+def symeig_errors(A_np, thresholds):
+    """The kernel against the plain version (``torch.linalg.eigh`` on CPU
+    copies) on a batch (B,n,n): eigenvalue error (abs, and x max|lambda|),
+    reconstruction ||V L V^T - A|| / ||A||, orthogonality ||V^T V - I||
+    (the kernel's, Frobenius, in float64), degeneracy projectors at the
+    given per-matrix thresholds (``solver.degeneracy_projector`` under
+    vmap on both sides) and whether their flags agree."""
+    A = torch.from_numpy(A_np).cuda()
+    w, V = symeig.symeig(A)
+    thr = torch.from_numpy(thresholds)
+    proj = torch.func.vmap(solver.degeneracy_projector)
+    P, flag = proj(A, thr.cuda())
+    torch.cuda.synchronize()
+    wp, _ = symeig.symeig_plain(torch.from_numpy(A_np))
+    Pp, flagp = proj(torch.from_numpy(A_np), thr)
+    w64, V64 = w.cpu().double().numpy(), V.cpu().double().numpy()
+    A64, wp64 = A_np.astype(np.float64), wp.double().numpy()
+    top = np.abs(wp64).max(1)
+    ev_abs = np.abs(w64 - wp64)
+    recon = (V64 * w64[:, None, :]) @ V64.transpose(0, 2, 1) - A64
+    eye = np.eye(A_np.shape[-1])
+    return dict(
+        ev_abs=float(ev_abs.max()),
+        ev_rel=float((ev_abs.max(1) / top).max()),
+        recon=float((np.linalg.norm(recon, axis=(1, 2))
+                     / np.linalg.norm(A64, axis=(1, 2))).max()),
+        orth=float(np.linalg.norm(V64.transpose(0, 2, 1) @ V64 - eye,
+                                  axis=(1, 2)).max()),
+        proj=float(np.abs(P.cpu().double().numpy()
+                          - Pp.double().numpy()).max()),
+        flags_equal=bool(torch.equal(flag.cpu(), flagp)),
+        degenerate=int(flagp.sum()))
+
+
+def gap_thresholds(A_np):
+    """Per matrix, a degeneracy threshold in the middle of its widest
+    eigenvalue gap where that gap is at least 5 % of max|lambda|, so that
+    the projector is well defined (across a gap g an fp32 eigensolver's
+    projector is good to ~6e-8 max|lambda| / g: a matrix of condition near
+    1 has no such gap); every other threshold lies 1e-3 x max|lambda|
+    under the smallest eigenvalue (no degenerate direction), far outside
+    fp32 eigenvalue error (the smallest of a matrix of condition 1e8 is
+    below it), and so does every odd matrix's."""
+    w = np.linalg.eigvalsh(A_np.astype(np.float64))
+    gaps = np.diff(w, axis=1)
+    k = np.argmax(gaps, axis=1)
+    rows = np.arange(len(w))
+    top = np.abs(w).max(1)
+    thr = w[:, 0] - 1e-3 * top
+    split = (gaps[rows, k] >= 0.05 * top) & (rows % 2 == 0)
+    thr[split] = ((w[rows, k] + w[rows, k + 1]) / 2)[split]
+    return thr.astype(np.float32)
+
+
+def symeig_checks(card):
+    """The symeig kernel against its plain version: B=1 at n = 3, 4, 6 and
+    the conditioned batch (B=4096, n=6), every error within SYMEIG_TOL
+    and equal degeneracy flags; timed at B=1 beside its bound, the plain
+    version and ``torch.linalg.eigh`` on the card.  Returns the JSON
+    row's numbers (n=6, B=1: the joint LM's shape)."""
+    rng = np.random.default_rng(21)
+    row, worst_abs = None, 0.0
+    for n in (3, 4, 6):
+        A_np = spd_batch(rng, 2, n, 1e3)[:1]
+        err = symeig_errors(A_np, gap_thresholds(A_np))
+        A = torch.from_numpy(A_np).cuda()
+        _, _, sweeps = symeig.launch(A, with_sweeps=True)
+        sweeps = int(sweeps.item())
+        ms = graph_ms(lambda: symeig.launch(A), GRAPH_CALLS)
+        A_cpu = torch.from_numpy(A_np)
+        symeig.symeig_plain(A_cpu)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            symeig.symeig_plain(A_cpu)
+        plain_ms = 1e3 * (time.perf_counter() - t0) / 50
+        library_ms = time_ms(lambda: torch.linalg.eigh(A), 50)
+        moved = 4 * (2 * n * n + n)
+        ops = symeig_flops(n, sweeps)
+        bytes_ms = 1e3 * moved / PEAK_BYTES_PER_S
+        ops_ms = 1e3 * ops / PEAK_FP64_FLOPS
+        bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+        worst_abs = max(worst_abs, err["ev_abs"])
+        print(f"kernel symeig n={n} B=1: sweeps={sweeps} "
+              f"eig_err={err['ev_rel']:.2e} (x max|lambda|) "
+              f"eig_abs_err={err['ev_abs']:.3e} recon={err['recon']:.2e} "
+              f"orth={err['orth']:.2e} projector={err['proj']:.2e} "
+              f"flags_equal={err['flags_equal']} (tol {SYMEIG_TOL}) "
+              f"ms={ms:.5f} (device, graph of {GRAPH_CALLS} calls) "
+              f"plain_ms={plain_ms:.5f} (torch.linalg.eigh on the CPU) "
+              f"library_ms={library_ms:.5f} (torch.linalg.eigh on the card, "
+              f"host status read included; never called by the port) "
+              f"bytes={moved} fp64_ops={ops} bound_ms={bound_ms:.7f} "
+              f"({bound_by}) [{card}]", flush=True)
+        for key in ("ev_rel", "recon", "orth", "proj"):
+            check(err[key] <= SYMEIG_TOL,
+                  f"symeig n={n}: {key} {err[key]} > {SYMEIG_TOL}")
+        check(err["flags_equal"], f"symeig n={n}: degeneracy flags differ")
+        if n == 6:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
+
+    A_np = spd_batch(rng, SYMEIG_BATCH, 6, SYMEIG_COND)
+    err = symeig_errors(A_np, gap_thresholds(A_np))
+    A = torch.from_numpy(A_np).cuda()
+    batch_ms = graph_ms(lambda: symeig.launch(A), GRAPH_CALLS)
+    _, _, sweeps = symeig.launch(A, with_sweeps=True)
+    sweeps = sweeps.cpu().numpy()
+    print(f"kernel symeig n=6 B={SYMEIG_BATCH} (condition numbers up to "
+          f"{SYMEIG_COND:.0e}): eig_err={err['ev_rel']:.2e} (x max|lambda|) "
+          f"recon={err['recon']:.2e} orth={err['orth']:.2e} "
+          f"projector={err['proj']:.2e} flags_equal={err['flags_equal']} "
+          f"({err['degenerate']} degenerate) sweeps={sweeps.min()}-"
+          f"{sweeps.max()} ms={batch_ms:.5f} (device) [{card}]", flush=True)
+    for key in ("ev_rel", "recon", "orth", "proj"):
+        check(err[key] <= SYMEIG_TOL,
+              f"symeig batch: {key} {err[key]} > {SYMEIG_TOL}")
+    check(err["flags_equal"], "symeig batch: degeneracy flags differ")
+    check(int(sweeps.max()) < 20, "symeig batch: a matrix hit the sweep cap")
+    row["max_abs_err"] = worst_abs
+    return row
 
 
 def make_drive(cfg, drive, card):
@@ -439,7 +634,7 @@ def run_slice(cfg, label, pts, msk, gt, card):
     torch.cuda.reset_peak_memory_stats()
     engine = SlamEngine(cfg)
     check(engine.device.type == "cuda", "the default device is not the card")
-    cuda_knn.reset_launches()
+    reset_counts()
     for i in range(SLICE_WARMUP):
         engine.process_scan(pts[i], msk[i], t=i * 0.1)
     torch.cuda.synchronize()
@@ -452,7 +647,7 @@ def run_slice(cfg, label, pts, msk, gt, card):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()              # the window's one deliberate sync
     wall = time.perf_counter() - t0
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     syncs = sync_warnings(rec)
     peak = torch.cuda.max_memory_allocated()
 
@@ -481,16 +676,62 @@ def run_slice(cfg, label, pts, msk, gt, card):
     check(ate < ATE_BAR, f"{label}: ATE {ate} >= {ATE_BAR} m")
     check(n_kf > 0, f"{label}: no keyframe inserted")
     stray = stray_syncs(syncs)
-    check(not stray, f"{label}: a sync other than eigh: "
+    check(not stray, f"{label}: a host sync: "
           + ", ".join(sorted({where(w) for w in stray})))
+    check(launches["symeig"] > 0, f"{label}: symeig never launched")
+    check_graphs(label, engine, card)
     return launches, len(syncs)
 
 
-def stray_syncs(syncs):
-    """Those not raised in ``ops/solver.py`` (``torch.linalg.eigh`` in the
-    degeneracy guard) or by the watch's own switch inside torch/cuda."""
-    return [w for w in syncs
-            if not where(w).rsplit(":", 1)[0].endswith(SYNC_FILES)]
+def stray_syncs(syncs, allowed=()):
+    """Those not raised by the watch's own switch inside torch/cuda (and
+    not among the ``allowed`` warnings' ids)."""
+    return [w for w in syncs if id(w) not in allowed
+            and not where(w).rsplit(":", 1)[0].endswith(SYNC_FILES)]
+
+
+def check_graphs(label, engine, card):
+    """The engine ran its two steps as graph replays, and no replay copied
+    a leaf of a MiB or more into the graphs (the banks stay in place).
+    Prints what the graphs hold."""
+    check(engine.graphs is not None
+          and all(g.captured and g.replays > 0 for g in engine.graphs),
+          f"{label}: the steps did not run as CUDA graph replays")
+    largest = max(g.copies.largest for g in engine.graphs)
+    print(f"{label} graphs: {graphs.summary(engine.graphs)} "
+          f"pool_bytes_total={sum(g.pool_bytes for g in engine.graphs)} "
+          f"[{card}]", flush=True)
+    check(largest < COPY_LIMIT, f"{label}: a {largest}-byte leaf was copied "
+          f"into the graphs")
+
+
+class CaptureWatch:
+    """Tags the warnings recorded during graph captures: a capture
+    synchronizes once before it starts (``torch.cuda.graph``), on purpose;
+    a step that synchronized inside would fail its capture."""
+
+    def __init__(self):
+        self.rec: list = []
+        self.ids: set = set()
+        self.captures = 0
+
+    def __enter__(self):
+        self.inner = graphs.CudaCapture.capture
+        watch = self
+
+        def capture(backend, fn):
+            n0 = len(watch.rec)
+            try:
+                return watch.inner(backend, fn)
+            finally:
+                watch.ids.update(id(w) for w in watch.rec[n0:])
+                watch.captures += 1
+
+        graphs.CudaCapture.capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        graphs.CudaCapture.capture = self.inner
 
 
 def imu_feeder(engine, gt):
@@ -530,7 +771,7 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
     engine = SlamEngine(cfg)
     feed_imu, batch_sizes = imu_feeder(engine, gt) if with_imu \
         else ((lambda i: None), [])
-    cuda_knn.reset_launches()
+    reset_counts()
 
     # Watch every loop tick from outside: which recorded warnings fall
     # inside it, CUDA events around it, the host clock, and the (device)
@@ -572,7 +813,7 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
         wall = time.perf_counter() - t0
     finally:
         pipeline.loop_step = inner
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     # Syncs: those inside a loop tick, and the rest.
@@ -667,14 +908,17 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
         check(loops_closed == 0 and pr["accepted"] == 0,
               f"{label}: a loop closed on a drive without a revisit: {pr}")
     check(ate < ATE_BAR, f"{label}: ATE {ate} >= {ATE_BAR} m")
-    # perception_step and mapping_step have no sync but the eigh of
-    # solver.degeneracy_projector (one per odometry step and per mapping
-    # tick) and the one inside torch/cuda; the IMU adds none.
+    # perception_step and mapping_step are graph replays, which cannot
+    # sync; nothing around them does either (the IMU pushes included).
     stray = stray_syncs(other_syncs)
-    check(not stray, f"{label}: a new sync outside the loop ticks: "
+    check(not stray, f"{label}: a sync outside the loop ticks: "
           + ", ".join(sorted({where(w) for w in stray})))
-    check(len(other_syncs) <= timed + engine.map_ticks + 1,
-          f"{label}: {len(other_syncs)} syncs outside loop ticks")
+    # The ICP's rigid fit is Horn's method on the symeig kernel: no svd.
+    fit = [w for w in loop_syncs if "utils/se3.py" in where(w)]
+    check(not fit, f"{label}: the ICP fit synchronized: "
+          + ", ".join(sorted({where(w) for w in fit})))
+    check(launches["symeig"] > 0, f"{label}: symeig never launched")
+    check_graphs(label, engine, card)
     summary = dict(scans_per_s=fps, ate=ate, ate_raw=ate_raw,
                    syncs_elsewhere=len(other_syncs), peak=peak - held)
     return launches, engine, summary
@@ -703,11 +947,11 @@ def run_runner(scans, valids, gt, card):
     with tempfile.TemporaryDirectory() as root:
         write_mulran_directory(root, scans[:RUNNER_SCANS],
                                valids[:RUNNER_SCANS], gt[:RUNNER_SCANS])
-        cuda_knn.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         res = runner.run_mulran(root)
         took = time.perf_counter() - t0
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     check(res["loader"] == "native", "runner: the native loader did not "
           f"serve: {native_io.why_unavailable()}")
     print(f"runner (run_mulran, default config, MulRan layout written from "
@@ -1085,7 +1329,7 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
     held = torch.cuda.memory_allocated()
     engine = pbatch.BatchEngine(cfg, n_seq=S)
     check(engine.device.type == "cuda", "the default device is not the card")
-    cuda_knn.reset_launches()
+    reset_counts()
 
     rec: list = []
     spans = {name: [] for name in ("perception", "mapping", "descriptors",
@@ -1135,7 +1379,7 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()          # the window's one final sync
         wall = time.perf_counter() - t0
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     # Functorch per-sample fallbacks (over the whole drive), by stage.
@@ -1434,6 +1678,82 @@ def batch_step_launches(batch, single, pts_all, msk_all, card):
 
 
 
+def run_repeatable(cfg, pts, msk, loop_engine, card):
+    """Fault 1 closed, and the graphs equal to the op-by-op path: two eager
+    engines (``eager=True``) over the loop drive's first REPEAT_SCANS scans
+    agree bit for bit (both trajectories, keyframe poses and count, loop
+    bank, kernel launches), a graphed engine (the default) agrees with
+    them, and so do the loop path's first published poses.  Then
+    DET_SCANS eager scans under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` list what torch still calls nondeterministic (that
+    mode swaps some kernels for others, so its run is not compared).
+    Returns the graphed engine's published trajectory."""
+    n = REPEAT_SCANS
+
+    def drive(eager, scans=n):
+        torch.cuda.synchronize()
+        reset_counts()
+        eng = SlamEngine(cfg, eager=eager)
+        t0 = time.perf_counter()
+        for i in range(scans):
+            eng.process_scan(pts[i], msk[i], t=i * 0.1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kf_n = int(eng.m.kf.count)
+        out = dict(traj=eng.trajectory_array(),
+                   raw=eng.trajectory_array(retro_correct=False),
+                   kf=eng.m.kf.poses6[:kf_n].cpu().numpy(), kf_n=kf_n,
+                   loops=[x.cpu().numpy() for x in eng.m.loops],
+                   launches=launch_counts())
+        return eng, out, wall
+
+    def same(a, b):
+        return (a["kf_n"] == b["kf_n"] and a["launches"] == b["launches"]
+                and all(np.array_equal(a[k], b[k])
+                        for k in ("traj", "raw", "kf"))
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a["loops"], b["loops"])))
+
+    _, e1, w1 = drive(True)
+    _, e2, w2 = drive(True)
+    g_eng, g, wg = drive(False)
+    loop_raw = loop_engine.trajectory_array(retro_correct=False)[:n]
+    repeat, graphed = same(e1, e2), same(g, e1)
+    loop_same = bool(np.array_equal(loop_raw, g["raw"]))
+    d_pos = float(np.abs(e1["raw"] - e2["raw"]).max())
+    print(f"repeatable: two eager engines over the first {n} scans "
+          f"bit-equal={repeat} (max |d pose entry| {d_pos:.3e}; keyframes "
+          f"{e1['kf_n']} / {e2['kf_n']}) "
+          f"s={w1:.1f} / {w2:.1f}; graphed engine bit-equal to them="
+          f"{graphed} s={wg:.1f}; loop path's first {n} published poses "
+          f"bit-equal={loop_same}; launches eager {e1['launches']} graphed "
+          f"{g['launches']} [{card}]", flush=True)
+    print(f"repeatable graphs: {graphs.summary(g_eng.graphs)} [{card}]",
+          flush=True)
+    check(repeat, "repeatable: two eager runs differ (fault 1 is open)")
+    check(graphed, "repeatable: the graphed engine differs from the eager")
+    check(loop_same, "repeatable: the loop path's first poses differ from "
+          "the graphed engine's")
+    del g_eng
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            drive(True, DET_SCANS)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = Counter(
+        f"{where(w)}: {str(w.message).splitlines()[0][:160]}" for w in rec
+        if "deterministic" in str(w.message))
+    print(f"repeatable: {DET_SCANS} eager scans under torch's deterministic "
+          f"mode (warn_only): {len(flagged)} places torch calls "
+          f"nondeterministic [{card}]", flush=True)
+    for at, count in flagged.most_common():
+        print(f"  nondeterministic x{count}: {at}", flush=True)
+    return g["raw"]
+
+
 # ---------------------------------------------------------------------------
 # The mesh paths (parallel/mesh.py, parallel/retrieval.py, every ``mesh``
 # argument).  The machine has one card, so M2 and M3 run two processes on
@@ -1459,11 +1779,13 @@ def _pose_diff(a, b):
     return dpos, float(np.degrees(np.arccos(c)).max())
 
 
-def run_mesh1(cfg, pts, msk, loop_engine, card):
+def run_mesh1(cfg, pts, msk, loop_engine, plain, card):
     """M1: ``SlamEngine(cfg, mesh=make_mesh(1, 1))`` in this process, NCCL
     at world size 1 (every collective an identity), over the drive's
     first scans, held against the loop path's first published poses; the
-    tolerance is the card's run-to-run spread, from a second plain run."""
+    tolerance is the card's run-to-run spread, from a second plain run
+    (``plain``, the repeatable phase's graphed engine over the same
+    scans)."""
     import torch.distributed as dist
     from sc_lego_loam_tpu_torch.parallel import mesh as pmesh
 
@@ -1476,16 +1798,15 @@ def run_mesh1(cfg, pts, msk, loop_engine, card):
         return eng, eng.trajectory_array(retro_correct=False)
 
     ref = loop_engine.trajectory_array(retro_correct=False)[:n]
-    _, plain = drive(None)
-    spread = _pose_diff(plain, ref)
+    spread = _pose_diff(plain[:n], ref)
     mesh = pmesh.make_mesh(1, 1)
     check(dist.get_backend() == "nccl", "M1 is not on NCCL")
     pmesh.reset_stats()
-    cuda_knn.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     eng, traj = drive(mesh)
     wall = time.perf_counter() - t0
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     stats = dict(pmesh.stats)
     check(eng.shard is not None and eng.shard.size == 1, "M1 has no mesh")
     dist.destroy_process_group()
@@ -1535,7 +1856,7 @@ def mesh2_rank(info, data):
 
     inners = {name: watch(name) for name in ticks}
     torch.cuda.synchronize()
-    cuda_knn.reset_launches()
+    reset_counts()
     pmesh.reset_stats()
     try:
         for i in range(MESH2_WARMUP):
@@ -1549,7 +1870,7 @@ def mesh2_rank(info, data):
     finally:
         for name, inner in inners.items():
             setattr(pipeline, name + "_step", inner)
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     stats = dict(pmesh.stats)
     traj = engine.trajectory_array()
     pr = evaluate.loop_precision_recall(engine, gt, cfg, tol_m=FACTOR_TOL_M)
@@ -1596,7 +1917,8 @@ def mesh2_rank(info, data):
              precision=-1.0 if pr["precision"] is None else pr["precision"],
              scans_per_s=(len(gt) - MESH2_WARMUP) / wall,
              bank_bytes=bank_bytes, peak=peak, k5=launches[5],
-             k1=launches[1], calls=stats.get("calls", 0),
+             k1=launches[1], symeig=launches["symeig"],
+             calls=stats.get("calls", 0),
              bytes=stats.get("bytes", 0), map_ticks=np.array(ticks["mapping"]),
              loop_ticks=np.array(ticks["loop"]).reshape(-1, 2),
              d_dist=d_dist, queries=len(queries), hits=hits,
@@ -1663,7 +1985,8 @@ def run_mesh2(scans, valids, gt, loop_engine, lidar, card, background):
           "M2: accepted factors not all true")
     check(ate < max(2.0 * lidar["ate"], lidar["ate"] + 0.15),
           f"M2: ATE {ate} against the single engine's {lidar['ate']}")
-    return [{k: int(rk[r]["k%d" % k]) for k in (5, 1)} for r in (0, 1)], m1
+    return [{5: int(rk[r]["k5"]), 1: int(rk[r]["k1"]),
+             "symeig": int(rk[r]["symeig"])} for r in (0, 1)], m1
 
 
 def mesh3_rank(info, data):
@@ -1678,13 +2001,13 @@ def mesh3_rank(info, data):
     msk = torch.from_numpy(np.load(os.path.join(data, "masks.npy"))).cuda()
     engine = pbatch.BatchEngine(default_config(), n_seq=2, mesh=mesh)
     check(engine.n_local == 1, "M3: a rank holds more than one sequence")
-    cuda_knn.reset_launches()
+    reset_counts()
     for t in range(pts.shape[0]):
         engine.process_scans(pts[t], msk[t], t=t * 0.1)
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     traj = engine.trajectory_array()
     np.savez(os.path.join(data, f"rank{info['rank']}.npz"), traj=traj,
-             k5=launches[5], k1=launches[1])
+             k5=launches[5], k1=launches[1], symeig=launches["symeig"])
 
 
 def run_mesh3(b_scans, b_valids, b_gt, card):
@@ -1762,7 +2085,8 @@ def run_mesh3(b_scans, b_valids, b_gt, card):
               f"M3: sequence {s} {other[s]} from the two-sequence run")
         check(ate[s] < max(2.0 * ate_ref[s], ate_ref[s] + 0.15),
               f"M3: sequence {s} ATE {ate[s]} against {ate_ref[s]}")
-    return [{k: int(rk[r]["k%d" % k]) for k in (5, 1)} for r in (0, 1)]
+    return [{5: int(rk[r]["k5"]), 1: int(rk[r]["k1"]),
+             "symeig": int(rk[r]["symeig"])} for r in (0, 1)]
 
 
 def make_ordered_drive(lidar, card):
@@ -1803,7 +2127,8 @@ def run_ordered_path(pts, msk, gt, card):
     of beam-ordered scans, no de-skew, loop closure on) over the ordered
     drive through ``tools.bench.run_engine`` (the bench's 16 warm-up
     scans).  Gates: ATE, k=5 launches (6 a mapping tick), no host sync
-    outside loop ticks but the ``eigh``.  Returns the kNN launches."""
+    outside loop ticks and the two graph captures.  Returns the kNN
+    launches."""
     cfg = synthetic_config()
     check(cfg.lidar.ordered and not cfg.odom.deskew and cfg.loop.enabled,
           "synthetic_config changed")
@@ -1817,11 +2142,12 @@ def run_ordered_path(pts, msk, gt, card):
         in_tick.update(id(w) for w in rec[n0:])
         return out
 
-    cuda_knn.reset_launches()
+    reset_counts()
     pipeline.loop_step = watched_loop_step
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            rec = caught
+        with warnings.catch_warnings(record=True) as caught, \
+                CaptureWatch() as captures:
+            rec = captures.rec = caught
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
@@ -1831,9 +2157,10 @@ def run_ordered_path(pts, msk, gt, card):
                 torch.cuda.set_sync_debug_mode("default")
     finally:
         pipeline.loop_step = inner
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     syncs = sync_warnings(rec)
     other = [w for w in syncs if id(w) not in in_tick]
+    in_capture = [w for w in other if id(w) in captures.ids]
     est = engine.trajectory_array()
     ate = evaluate.ate_rmse(est, gt[:len(est)])
     expected = expected_k5(cfg, engine.map_ticks)
@@ -1846,20 +2173,27 @@ def run_ordered_path(pts, msk, gt, card):
           f"knn_launches_k5={launches[5]} (expected {expected}) "
           f"knn_launches_k1={launches[1]} loops_closed="
           f"{int(engine.loops_closed)} ate_m={ate:.4f} host_syncs: loop_ticks="
-          f"{len(syncs) - len(other)} elsewhere={len(other)} (all scans) "
+          f"{len(syncs) - len(other)} graph_captures={len(in_capture)} "
+          f"elsewhere={len(other) - len(in_capture)} (all scans) "
           f"[{card}]", flush=True)
     print("ordered path stages, host ms to launch (mean): " + " ".join(
         f"{name}={1e3 * st['mean']:.2f} (n={st['n']})"
         for name, st in sorted(stages.items())) + f" [{card}]", flush=True)
-    print_syncs("ordered path, elsewhere", other)
+    print_syncs("ordered path, graph captures", in_capture)
+    print_syncs("ordered path, elsewhere",
+                [w for w in other if id(w) not in captures.ids])
     check(est.shape == (len(pts), 4, 4) and bool(np.isfinite(est).all()),
           "ordered path: trajectory is not finite")
     check(ate < ATE_BAR, f"ordered path: ATE {ate} >= {ATE_BAR} m")
     check(launches[5] > 0 and launches[5] == expected,
           f"ordered path: k=5 launches {launches[5]}, expected {expected}")
-    stray = stray_syncs(other)
-    check(not stray, "ordered path: a sync outside the loop ticks other "
-          "than eigh: " + ", ".join(sorted({where(w) for w in stray})))
+    stray = stray_syncs(other, captures.ids)
+    check(not stray, "ordered path: a sync outside the loop ticks and the "
+          "graph captures: " + ", ".join(sorted({where(w) for w in stray})))
+    check(captures.captures == 2, f"ordered path: {captures.captures} graph "
+          "captures, expected 2")
+    check(launches["symeig"] > 0, "ordered path: symeig never launched")
+    check_graphs("ordered path", engine, card)
     return launches
 
 
@@ -1867,9 +2201,9 @@ def run_latency(cfg, pts, msk, card):
     """``tools.bench``'s latency measure (a synchronize after every scan)
     over the loop drive's first LOOP_WARMUP + LATENCY_SCANS scans."""
     n = LOOP_WARMUP + LATENCY_SCANS
-    cuda_knn.reset_launches()
+    reset_counts()
     lat = bench.latency_ms(cfg, pts[:n], msk[:n], LOOP_WARMUP, device="cuda")
-    launches = dict(cuda_knn.launches)
+    launches = launch_counts()
     print(f"latency (tools.bench.latency_ms, default_config, a synchronize "
           f"after every scan, loop ticks included): {lat} "
           f"knn_launches={launches} [{card}]", flush=True)
@@ -1886,7 +2220,7 @@ def run_capacity_card(engine, scans, valids, card):
     state filled from the loop path's keyframes (``engine``, its drive
     ``scans``), the loop bank past its slots.  Every check of the tool is a
     gate; the second state is freed on return."""
-    cuda_knn.reset_launches()
+    reset_counts()
     try:
         run_capacity.part1("cuda", card, extra=CAPACITY_EXTRA)
         run_capacity.part2("cuda", card, engine, scans, valids,
@@ -1894,7 +2228,7 @@ def run_capacity_card(engine, scans, valids, card):
     except RuntimeError as err:
         check(False, str(err))
     torch.cuda.empty_cache()
-    return dict(cuda_knn.launches)
+    return launch_counts()
 
 
 def check_no_jax():
@@ -1946,6 +2280,7 @@ def main():
              for seed, (name, k, Q, T, max_sq) in enumerate(VLP16_SHAPES, 3)]
     tie_and_small_count_checks(card)
     batched_kernel_checks(card)
+    sym_row = symeig_checks(card)
     small_linalg_times(card)
     prepare_targets_times(card)
     b_scans, b_valids, b_gt = b_drive.result()
@@ -1970,8 +2305,8 @@ def main():
         two_stage, "two-stage slice (joint_6dof=False, sparse picks, loop "
         "closure off)", pts, msk, gt, card)
     print(f"two-stage odometry: host syncs in the slice's timed window "
-          f"{stage_syncs} against the joint solver's {joint_syncs} "
-          f"(one more eigh a scan expected: 3x3 per stage against one 6x6) "
+          f"{stage_syncs} against the joint solver's {joint_syncs} (both "
+          f"0: the 3x3 and 6x6 eigendecompositions are the symeig kernel) "
           f"[{card}]", flush=True)
     elapsed("the slices")
 
@@ -1979,6 +2314,8 @@ def main():
         base, "loop path (default_config, loop closure on)", pts, msk, gt,
         card)
     elapsed("the loop path")
+    plain48 = run_repeatable(base, pts, msk, engine, card)
+    elapsed("repeatable")
     imu_cfg = base.replace(imu=ImuConfig(enabled=True))
     imu_pts, imu_msk = pts[:IMU_SCANS], msk[:IMU_SCANS]
     paths["imu"], imu_engine, with_imu = run_loop_path(
@@ -2008,7 +2345,7 @@ def main():
     # its own kNN counts (M2's ranks in their processes).
     m2, paths["mesh M1"] = run_mesh2(
         scans, valids, gt, engine, lidar, card,
-        background=lambda: run_mesh1(base, pts, msk, engine, card))
+        background=lambda: run_mesh1(base, pts, msk, engine, plain48, card))
     for r, n in enumerate(m2):
         paths[f"mesh M2 rank {r}"] = n
     elapsed("mesh M1 and M2")
@@ -2037,7 +2374,11 @@ def main():
     elapsed("the breakdowns")
     rows = profile_stages.profile_engine(engine, scans[-1], valids[-1],
                                          len(scans) * 0.1, card, PROFILE_REPS)
-    check(all(r["launches"] > 0 for r in rows),
+    replays = [r for r in rows if "replay" in r["name"]]
+    check(len(replays) == 2 and all(r["device_ms"] > 0 and r["syncs"] == 0
+                                    for r in replays),
+          "profile_stages: the graph replay rows")
+    check(all(r["launches"] > 0 for r in rows if r not in replays),
           "profile_stages: a sub-stage launched no kernel")
     elapsed("profile_stages")
     check_no_jax()
@@ -2045,9 +2386,12 @@ def main():
 
     surf, corner, icp = results
     common = dict(route="cuda", source=KNN_SOURCE, replaces=KNN_REPLACES)
-    per_path = {k: {name: n[k] for name, n in paths.items()} for k in (5, 1)}
+    per_path = {k: {name: n[k] for name, n in paths.items()}
+                for k in (5, 1, "symeig")}
     print(f"kNN launches by path: k=5 {per_path[5]} k=1 {per_path[1]} "
           f"[{card}]", flush=True)
+    print(f"symeig launches by path: {per_path['symeig']} [{card}]",
+          flush=True)
     k5 = dict(name="knn_topk_k5", **common,
               launches=sum(per_path[5].values()), **surf)
     k5["max_abs_err"] = max(surf["max_abs_err"], corner["max_abs_err"],
@@ -2061,8 +2405,13 @@ def main():
           and per_path[1]["mesh M2 rank 0"] > 0
           and per_path[1]["mesh M2 rank 1"] > 0,
           f"a loop-closing path never launched the k=1 kernel: {per_path[1]}")
+    check(all(n > 0 for n in per_path["symeig"].values()),
+          f"a path never launched the symeig kernel: {per_path['symeig']}")
+    sym = dict(name="symeig", route="cuda", source=SYMEIG_SOURCE,
+               replaces=SYMEIG_REPLACES,
+               launches=sum(per_path["symeig"].values()), **sym_row)
     print(f"card: {card}")
-    print(json.dumps({"kernels": [k5, k1]}))
+    print(json.dumps({"kernels": [k5, k1, sym]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,8 +11,10 @@
 - Scan-to-map is a 6-DOF Gauss-Newton on an se(3) twist: per research a
   5-NN in the submap (the CUDA kernel on the card), line fits by closed-
   form 3x3 eigen, plane fits by 3x3 normal equations, robust weights,
-  degeneracy projection; a fixed iteration count with ``torch.where``
-  freezing after convergence.
+  degeneracy projection (the 6x6 eigendecomposition by ``ops/symeig``, a
+  kernel that reads nothing back); a fixed iteration count with
+  ``torch.where`` freezing after convergence, so a tick reads no device
+  value on the host and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -281,7 +283,7 @@ def scan_to_map(config: PipelineConfig, T_guess: torch.Tensor,
 
         n_sel = (w > 0).sum()
         delta, H, _ = solver.gauss_newton_step(J, r, w, damping=1e-6)
-        if it == 0:      # degeneracy eigh once (mO.cpp:1450-1477)
+        if it == 0:      # degeneracy eigen once (mO.cpp:1450-1477)
             Pm, degen = solver.degeneracy_projector(H, m.eig_threshold)
         delta = torch.where(degen, Pm @ delta, delta)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)

@@ -12,9 +12,10 @@ without it the reference's two stages run: surf features solve
 Control flow never branches on a device value: an LM loop runs its fixed
 iteration count and freezes the state with ``torch.where`` once converged,
 and the first-scan initialization is a ``torch.where`` between the tracked
-and the initializing result.  The one host read of an LM loop is inside
-``torch.linalg.eigh`` (the degeneracy guard), which checks its status
-there: one sync a scan jointly, two in two stages.
+and the initializing result.  An LM loop reads nothing on the host: the
+degeneracy guard's eigendecomposition is ``ops/symeig`` (one kernel a scan
+jointly, 6x6; two in two stages, 3x3), so the step can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -259,7 +260,7 @@ def _lm_loop(xi0, xi_anchor, tube, param_idx, terms, ocfg):
         g = Jw.T @ r
         Hd = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye
         delta = -solver.solve_spd(Hd, g)
-        if it == 0:      # degeneracy eigh once (fA.cpp:1329-1356)
+        if it == 0:      # degeneracy eigen once (fA.cpp:1329-1356)
             Pm, degen = solver.degeneracy_projector(H, ocfg.eig_threshold)
         delta = torch.where(degen, Pm @ delta, delta)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)

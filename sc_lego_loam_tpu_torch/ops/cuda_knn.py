@@ -16,9 +16,11 @@ outputs equal B separate calls in every slot.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library on
 first use, in ``_build/`` next to the package and keyed by a hash of the
-source, and loaded with ctypes.  One call is two device kernels on the
-current stream: ``knn_partial`` on a grid of query tiles x target splits,
-and ``knn_merge``, which merges the splits' partial lists exactly.  The
+sources, and loaded with ctypes.  The library is every ``csrc/*.cu`` in one
+``nvcc`` call (``ops/symeig.py`` launches the other kernel in it).  One
+call is two device kernels on the current stream: ``knn_partial`` on a
+grid of query tiles x target splits, and ``knn_merge``, which merges the
+splits' partial lists exactly.  The
 number of splits S is chosen here from the static shapes (``plan``); the
 outputs and the (B,S,k,Q) scratch are allocated here, nothing in the C
 call.  ``launches[k]`` counts the calls of each instantiation (k=5:
@@ -28,6 +30,7 @@ scan-to-map, k=1: ICP); a batched call counts once.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,7 +46,7 @@ from . import knn as plain
 from .compact import compact_indices
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "knn.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -101,27 +104,29 @@ class KernelConfig(NamedTuple):
 
 
 def compile_library(defines: tuple[str, ...] = ()) -> BuildInfo:
-    """``nvcc`` the source into ``_build/`` (once per hash of source, flags
-    and ``defines``, e.g. ``("-DKNN_K5_R=2",)``); raises with the
-    compiler's output when it fails."""
+    """``nvcc`` the sources into one library in ``_build/`` (once per hash
+    of sources, flags and ``defines``, e.g. ``("-DKNN_K5_R=2",)``); raises
+    with the compiler's output when it fails."""
     flags = [*NVCC_FLAGS, *defines]
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libknn_{tag}.so")
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in SOURCES:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    tag = digest.hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"libkernels_{tag}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, SOURCE],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *SOURCES],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {SOURCES}:\n{log}")
         os.replace(tmp, out)
     return BuildInfo(out, seconds, log)
 
@@ -136,6 +141,12 @@ def load_library(path: str):
     lib.knn_config.restype = ctypes.c_int
     lib.knn_error_string.argtypes = [ctypes.c_int]
     lib.knn_error_string.restype = ctypes.c_char_p
+    lib.symeig_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.symeig_launch.restype = ctypes.c_int
+    lib.graph_node_count.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.graph_node_count.restype = ctypes.c_int
     configs = {}
     for k in KS:
         out = (ctypes.c_int * len(KernelConfig._fields))()
@@ -149,7 +160,7 @@ _configs: dict[int, KernelConfig] = {}
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/knn.cu`` (once per source hash) and load it."""
+    """Compile ``csrc/*.cu`` (once per source hash) and load the library."""
     global _lib, _build_info
     if _build_info is None:
         info = compile_library()

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from .symeig import symeig
+
 
 def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Closed-form (adjugate) batched 3x3 solve."""
@@ -129,8 +131,10 @@ def sym3_eig(A: torch.Tensor):
 def degeneracy_projector(H: torch.Tensor, eig_threshold: float):
     """Null-space projection matrix matP (fA.cpp:1329-1356): zero the
     update along eigenvectors of H with small eigenvalues.  Returns
-    (P_mat, is_degenerate)."""
-    evals, evecs = torch.linalg.eigh(H)            # ascending
+    (P_mat, is_degenerate).  The eigendecomposition is ``ops/symeig``: on
+    the card a kernel that reads nothing back on the host (the JAX
+    package's ``jnp.linalg.eigh``)."""
+    evals, evecs = symeig(H)                       # ascending
     ok = (evals > eig_threshold).to(H.dtype)
     Pm = (evecs * ok[None, :]) @ evecs.T
     return Pm, (ok < 0.5).any()

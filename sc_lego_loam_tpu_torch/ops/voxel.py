@@ -86,17 +86,23 @@ def _bucket(points: torch.Tensor, mask: torch.Tensor, leaf: float,
 def voxel_downsample_hash(points: torch.Tensor, mask: torch.Tensor,
                           leaf: float, out_pad: int, table_bits: int = 16):
     """Hash-bucket centroid voxel downsample (sort-free).  Hash collisions
-    merge distant voxels, which the hot-path consumers tolerate.  The
-    float scatter-adds sum in a run-dependent order on the card.
-    Returns (points (out_pad,3), mask (out_pad,))."""
+    merge distant voxels, which the hot-path consumers tolerate.
+    Returns (points (out_pad,3), mask (out_pad,)).
+
+    The bucket sums are an accumulating ``index_put``: on the card it sorts
+    the bucket indices stably and adds each bucket's points in their index
+    order, as the CPU (and the JAX package's scatter-add there) does, so
+    the sums have the same bits run to run and on either device.  A float
+    ``index_add`` on the card adds in the order its atomics land."""
     T = 1 << table_bits
     bucket = _bucket(points, mask, leaf, table_bits)
     w = mask.to(points.dtype)
     sums = torch.zeros((T, 3), dtype=points.dtype,
-                       device=points.device).index_add(
-        0, bucket, points * w[:, None])
+                       device=points.device).index_put(
+        (bucket,), points * w[:, None], accumulate=True)
     cnts = torch.zeros(T, dtype=points.dtype,
-                       device=points.device).index_add(0, bucket, w)
+                       device=points.device).index_put(
+        (bucket,), w, accumulate=True)
     idx, ok = compact_indices(cnts > 0, out_pad)
     centroid = sums[idx] / torch.clamp(cnts[idx], min=1.0)[:, None]
     return torch.where(ok[:, None], centroid, 0.0), ok

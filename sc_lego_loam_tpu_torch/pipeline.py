@@ -11,12 +11,14 @@ Three steps over device-resident state, as in the JAX package:
 
 The host schedules (the mapping cadence is a wall-clock gate in the
 reference, utility.h:109; the loop cadence counts mapping ticks).
-``perception_step`` and ``mapping_step`` read no device value on the host;
-``loop_step`` reads a few flags (see ``loop.device_tick``) so that a tick
-without a candidate skips the ICP and one without an accepted factor skips
-the re-solve.  The trajectory is fetched once, by ``trajectory_array``.
-State updates are in place where a buffer is large (trajectory rings,
-keyframe and descriptor banks).
+``perception_step`` and ``mapping_step`` read no device value on the host,
+so ``SlamEngine`` on the card replays each as a CUDA graph (``graphs.py``,
+the JAX package's ``jit`` on the two steps); ``loop_step`` reads a few
+flags (see ``loop.device_tick``) so that a tick without a candidate skips
+the ICP and one without an accepted factor skips the re-solve, and runs
+eagerly.  The trajectory is fetched once, by ``trajectory_array``.  State
+updates are in place where a buffer is large (trajectory rings, keyframe
+and descriptor banks).
 
 With ``imu.enabled`` the caller feeds IMU samples (``push_imu_batch``, all
 samples up to a scan's end before that scan); they de-skew the cloud, give
@@ -26,6 +28,7 @@ mapped pose.  None of that reads a device value on the host either.
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import NamedTuple
 
@@ -34,7 +37,8 @@ import torch
 
 from .config import PipelineConfig
 
-from . import frontend, imu as imu_mod, loop, mapping, odometry, posegraph
+from . import (frontend, graphs, imu as imu_mod, loop, mapping, odometry,
+               posegraph)
 from .models import scan_context
 from .ops import features as features_op
 from .ops.compact import compact_indices
@@ -298,8 +302,19 @@ class SlamEngine:
     loop closure and IMU.  ``device`` is ``"cuda"`` unless the caller asks
     for ``"cpu"`` (the plain versions of the kernels); without a card the
     default raises.  ``process_scan`` reads a device value only inside a
-    loop tick (and in the LM loops' ``eigh``); ``trajectory_array()``
-    fetches the run once.
+    loop tick; ``trajectory_array()`` fetches the run once.
+
+    On the card ``perception_step`` and ``mapping_step`` run as CUDA graph
+    replays (``graphs.StepGraph``): the first call of each runs eagerly
+    (warm-up), the second captures, every later one is one graph launch
+    over static buffers; the scan is uploaded into a static buffer.  Loop
+    ticks run eagerly.  ``eager=True`` (keyword only) keeps the op-by-op
+    path: for comparisons against the graphs and per-sub-stage profiles.
+    With a ``mesh`` (gloo and NCCL collectives are not captured here) and on
+    the CPU the engine always runs eagerly; ``eager=False`` there raises.
+    The engine is bit for bit the same either way: the graphs replay the
+    eager kernels, and every kernel on the path is deterministic (the voxel
+    filter's and the pose graph's scatter-sums sort their indices).
 
     ``mesh`` (keyword only; a ``DeviceMesh`` with a 'kf' axis from
     ``parallel.mesh.make_mesh``): every rank of the 'kf' group runs the
@@ -312,15 +327,26 @@ class SlamEngine:
     # Fixed pad so that every per-scan IMU batch has one shape.
     IMU_BATCH_PAD = 32
 
-    def __init__(self, config: PipelineConfig, device="cuda", *, mesh=None):
+    def __init__(self, config: PipelineConfig, device="cuda", *, mesh=None,
+                 eager: bool | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "SlamEngine(device='cuda'): no CUDA device; pass "
                 "device='cpu' to run the plain versions")
+        graphable = self.device.type == "cuda" and mesh is None
+        if eager is None:
+            eager = not graphable
+        elif not eager and not graphable:
+            raise ValueError(
+                "SlamEngine(eager=False): CUDA graphs need a CUDA device "
+                "and no mesh (collectives are not captured)")
         # fp32 everywhere, as the JAX entry points' "highest" precision.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # cuBLAS is deterministic on one stream with a fixed workspace;
+        # torch's deterministic mode asks for this setting.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         self.config = config
         self.mesh = mesh
         self.shard = mesh_mod.bank_sharding(mesh)
@@ -337,6 +363,23 @@ class SlamEngine:
         self._scans_fed = 0
         self._warned_kf_cap = False
         self._warned_loop_cap = False
+        self.graphs = None
+        self._scan_buf = None
+        if not eager:
+            self.use_graphs(graphs.CudaCapture(self.device))
+
+    def use_graphs(self, backend):
+        """Run the two per-scan steps through ``graphs.StepGraph``s on
+        ``backend`` (``graphs.CudaCapture``; the CPU tests hand in
+        ``graphs.EagerStandIn``)."""
+        cfg = self.config
+        self.graphs = (
+            graphs.StepGraph(
+                lambda p, corr, pts, msk, t: perception_step(
+                    cfg, p, corr, pts, msk, t), backend, "perception_step"),
+            graphs.StepGraph(
+                lambda m, *args: (mapping_step(cfg, m, *args),), backend,
+                "mapping_step"))
 
     # Views of the device state for export, checkpoint and tests; the
     # setters copy what they are given onto the engine's device.
@@ -381,16 +424,19 @@ class SlamEngine:
     def loops_closed(self) -> torch.Tensor:
         return self.m.loops_closed
 
-    def _upload(self, rows: np.ndarray) -> torch.Tensor:
-        """A small host array onto the engine's device without a host sync:
-        through a pinned staging tensor of its own (the caching host
-        allocator keeps it alive until the copy has run)."""
+    def _upload(self, rows: np.ndarray, out=None) -> torch.Tensor:
+        """A host array onto the engine's device (into ``out`` if given)
+        without a host sync: through a pinned staging tensor of its own
+        (the caching host allocator keeps it alive until the copy has
+        run)."""
         src = torch.from_numpy(rows)
         if self.device.type != "cuda":
-            return src
+            return src if out is None else out.copy_(src)
         staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
         staged.copy_(src)
-        return staged.to(self.device, non_blocking=True)
+        if out is None:
+            return staged.to(self.device, non_blocking=True)
+        return out.copy_(staged, non_blocking=True)
 
     def push_imu(self, t: float, rpy, acc, gyro):
         """Feed one IMU sample (imuHandler, fA.cpp:431-489): world-frame
@@ -420,15 +466,45 @@ class SlamEngine:
             self.p.imu, rows[:, 0], rows[:, 1:4], rows[:, 4:7], rows[:, 7:10],
             rows[:, 10] > 0.5))
 
+    def _stage_scan(self, points, mask, t: float):
+        """The scan and its time on the device: fresh tensors eagerly; with
+        graphs the static buffers, the scan through a pinned staging copy
+        (or a device copy) and ``t`` by a fill."""
+        if self.graphs is None:
+            points = torch.as_tensor(points, dtype=torch.float32,
+                                     device=self.device)
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+            # A fill kernel, not a host->device copy (which would sync).
+            return points, mask, torch.full((), t, dtype=torch.float32,
+                                            device=self.device)
+        if self._scan_buf is None:
+            n = len(points)
+            self._scan_buf = (
+                torch.empty((n, 3), dtype=torch.float32, device=self.device),
+                torch.empty(n, dtype=torch.bool, device=self.device),
+                torch.empty((), dtype=torch.float32, device=self.device))
+        buf_pts, buf_msk, buf_t = self._scan_buf
+        for buf, src, dtype in ((buf_pts, points, np.float32),
+                                (buf_msk, mask, np.bool_)):
+            if tuple(src.shape) != tuple(buf.shape):
+                raise ValueError(
+                    f"scan of shape {tuple(src.shape)}: this engine's "
+                    f"graphs were built for {tuple(buf.shape)}")
+            if isinstance(src, torch.Tensor) and \
+                    src.device.type == self.device.type:
+                buf.copy_(src)
+            else:
+                if isinstance(src, torch.Tensor):
+                    src = src.numpy()
+                self._upload(np.ascontiguousarray(src, dtype), out=buf)
+        buf_t.fill_(t)
+        return buf_pts, buf_msk, buf_t
+
     def process_scan(self, points, mask, t: float):
         """Feed one scan (padded (N,3) + mask, numpy or tensors).  Returns
         the fused pose as a device tensor (no sync)."""
         cfg = self.config
-        points = torch.as_tensor(points, dtype=torch.float32,
-                                 device=self.device)
-        mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
-        # A fill kernel, not a host->device copy (which would sync).
-        t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
+        points, mask, t_dev = self._stage_scan(points, mask, t)
 
         self._scans_fed += 1
         if self._scans_fed == cfg.cap.max_scans + 1:
@@ -438,18 +514,27 @@ class SlamEngine:
                 "CapacityConfig.max_scans", RuntimeWarning)
 
         with self.timer.stage("perception"):
-            self.p, odom_pose, out_pts, out_mask, fused = perception_step(
-                cfg, self.p, self.m.correction, points, mask, t_dev)
+            if self.graphs is None:
+                self.p, odom_pose, out_pts, out_mask, fused = \
+                    perception_step(cfg, self.p, self.m.correction, points,
+                                    mask, t_dev)
+            else:
+                self.p, odom_pose, out_pts, out_mask, fused = self.graphs[0](
+                    self.p, self.m.correction, points, mask, t_dev)
+                fused = fused.clone()   # the graph's output is rewritten
 
         if t - self.last_map_time >= cfg.mapping.process_interval:
             self.last_map_time = t
             odo = self.p.odo
-            with self.timer.stage("mapping"):
-                self.m = mapping_step(
-                    cfg, self.m, odo.corner_last.xyz, odo.corner_last.mask,
+            args = (odo.corner_last.xyz, odo.corner_last.mask,
                     odo.surf_last.xyz, odo.surf_last.mask, out_pts, out_mask,
-                    odom_pose, points, mask, t_dev, self.p.imu,
-                    mesh=self.shard)
+                    odom_pose, points, mask, t_dev, self.p.imu)
+            with self.timer.stage("mapping"):
+                if self.graphs is None:
+                    self.m = mapping_step(cfg, self.m, *args,
+                                          mesh=self.shard)
+                else:
+                    (self.m,) = self.graphs[1](self.m, *args)
             self.map_ticks += 1
             # Loop-closure cadence: every Nth mapping tick (the reference's
             # 1 Hz thread vs its ~3.3 Hz mapping = every ~3rd tick).
@@ -457,6 +542,8 @@ class SlamEngine:
                     self.map_ticks % cfg.loop.check_every_ticks == 0:
                 with self.timer.stage("loop"):
                     self.m = loop_step(cfg, self.m, mesh=self.shard)
+                    if self.graphs is not None:
+                        self.m = self.graphs[1].load(self.m)
                 self.loop_ticks += 1
         if not (self._warned_kf_cap and self._warned_loop_cap):
             self._check_caps_host_bound()

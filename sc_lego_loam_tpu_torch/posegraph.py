@@ -267,11 +267,13 @@ def gn_step(config: PipelineConfig, X: torch.Tensor, odom_z: torch.Tensor,
     else:
         v = torch.linalg.solve_ex(M11, rhs1).result
 
-    # (G^T v)_k = P_k^T * suffix-sum_k( scatter(Q^T v at li/lj) ).
+    # (G^T v)_k = P_k^T * suffix-sum_k( scatter(Q^T v at li/lj) ).  An
+    # accumulating index_put sums the factors of one node in index order
+    # on the card too (float index_add there sums in the atomics' order).
     vL = v.reshape(L, 6)
-    u = torch.zeros((K, 6), **f32).index_add(
-        0, li, torch.einsum("lba,lb->la", Qi, vL)).index_add(
-        0, lj, torch.einsum("lba,lb->la", Qj, vL))
+    u = torch.zeros((K, 6), **f32).index_put(
+        (li,), torch.einsum("lba,lb->la", Qi, vL), accumulate=True).index_put(
+        (lj,), torch.einsum("lba,lb->la", Qj, vL), accumulate=True)
     S = torch.flip(torch.cumsum(torch.flip(u, (0,)), 0), (0,))
     Gtv = torch.einsum("kba,kb->ka", Psi, S)
     w_sol = -r_hat - inv_lam * Gtv

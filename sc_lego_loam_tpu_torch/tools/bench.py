@@ -34,8 +34,12 @@ and no block inherits another's allocator state.  The knobs are
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "extra"};
 ``extra`` adds to ``bench.py``'s keys ``device`` (the card's name and power
-limit) and ``knn_launches`` (the CUDA kNN's calls per block, k=5 and k=1).
-``--device`` defaults to ``cuda`` and fails without a card.
+limit), ``knn_launches`` (the CUDA kNN's calls per block, k=5 and k=1)
+and ``launches_per_scan`` (what the host puts on the stream a scan on the
+real path, from a profiled run of its first scans after the ``real``
+block's timed run, in its process).  The engines replay their per-scan steps as CUDA graphs, the
+``SlamEngine`` default on the card.  ``--device`` defaults to ``cuda`` and
+fails without a card.
 """
 
 from __future__ import annotations
@@ -262,6 +266,52 @@ def real_sequence(cfg, n_scans):
         seed=SEED, shuffle=False, skew=True, radius=30.0, loops=1.05)
 
 
+# Runtime calls that put work on a stream, by name prefix (torch.profiler's
+# CUDA runtime / driver events).
+LAUNCH_CALLS = {"kernel": ("cudaLaunchKernel", "cuLaunchKernel"),
+                "graph": ("cudaGraphLaunch", "cuGraphLaunch"),
+                "copy": ("cudaMemcpyAsync", "cuMemcpyAsync", "cudaMemsetAsync",
+                         "cuMemsetAsync")}
+LAUNCH_SCANS = 30     # profiled scans after the warm-up
+
+
+def launches_per_scan(cfg, scans, valids, warmup, n=LAUNCH_SCANS,
+                      device="cuda"):
+    """What the host puts on the stream a scan: a fresh engine over the
+    first ``warmup + n`` scans, ``torch.profiler`` over the last ``n``
+    (opened after every timed run: a profiler session slows later
+    launches).  Returns per scan: host calls by kind (kernel launches,
+    graph launches, copies and fills), their sum, and the device kernels
+    that ran; None on the CPU or for no scan."""
+    if torch.device(device).type != "cuda" or n < 1:
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    engine = SlamEngine(cfg, device=device)
+    for i in range(warmup):
+        engine.process_scan(scans[i], valids[i], t=i * 0.1)
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(warmup, warmup + n):
+            engine.process_scan(scans[i], valids[i], t=i * 0.1)
+        sync(device)
+    host = dict.fromkeys(LAUNCH_CALLS, 0)
+    kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels += 1
+            continue
+        for kind, names in LAUNCH_CALLS.items():
+            if e.name.startswith(names):
+                host[kind] += 1
+    out = {f"host_{k}": round(v / n, 2) for k, v in host.items()}
+    out["host_launches"] = round(sum(host.values()) / n, 2)
+    out["device_kernels"] = round(kernels / n, 2)
+    out["scans"] = n
+    return out
+
+
 def block_real(device, cfg=None, n_scans=N_SCANS, warmup=WARMUP):
     """HEADLINE: the lidar-only real path (MulRan carries no IMU):
     scatter projection + carried-twist pre-de-skew + the rigid solver."""
@@ -401,6 +451,12 @@ def main(argv=None) -> int:
         frag = BLOCKS[block](device)
         frag["knn_launches"] = {block: {f"k{k}": n for k, n in
                                         sorted(cuda_knn.launches.items())}}
+        if block == "real":     # after the block's timing, in its process
+            cfg = mulran_engine_config()
+            scans, valids, _ = real_sequence(cfg, N_SCANS)
+            frag["launches_per_scan"] = launches_per_scan(
+                cfg, scans, valids, WARMUP,
+                max(0, min(LAUNCH_SCANS, N_SCANS - WARMUP)), device)
         print(_FRAG + json.dumps(frag), flush=True)
         return 0
 

@@ -20,6 +20,11 @@ sub-stage runs on that state, on scan 60, and prints:
   session every later launch is slower);
 - ``host_syncs``: the syncs of one call (``torch.cuda.set_sync_debug_mode``).
 
+On the card two more rows time one ``perception_step`` replay and one
+``mapping_step`` replay of CUDA graphs (``graphs.StepGraph``, what
+``SlamEngine`` runs) captured on copies of the engine's state, beside the
+eager sub-stages and whole steps.
+
 The submap occupancy prints last.  ``--device`` defaults to ``cuda`` and
 fails without a card; on the CPU only ``ms_synchronized`` and ``host_ms``
 are measured.
@@ -35,7 +40,7 @@ import warnings
 
 import torch
 
-from .. import frontend, mapping, odometry, pipeline
+from .. import frontend, graphs, mapping, odometry, pipeline
 from ..config import synthetic_config
 from ..models import scan_context
 from ..pipeline import SlamEngine
@@ -201,7 +206,47 @@ def stage_parts(engine: SlamEngine, points, mask, t: float, reps=REPS):
     ]
     if cfg.loop.enabled:
         parts.append(("loop_step", lambda: pipeline.loop_step(cfg, m), half))
+    if dev.type == "cuda":
+        parts += replay_parts(engine, pts, msk, t, reps)
     return parts, sub
+
+
+def replay_parts(engine: SlamEngine, pts, msk, t, reps=REPS):
+    """One ``perception_step`` replay and one ``mapping_step`` replay: the
+    engine's two steps as ``graphs.StepGraph``s on a copy of its state
+    (the keyframe banks copied once, on the card), warmed up and captured
+    here.  Each replay advances the copy, never the engine."""
+    cfg, dev = engine.config, engine.device
+    backend = graphs.CudaCapture(dev)
+    perception = graphs.StepGraph(
+        lambda p, corr, x, k, tt: pipeline.perception_step(
+            cfg, p, corr, x, k, tt), backend, "perception_step")
+    mapping_graph = graphs.StepGraph(
+        lambda m, *args: (pipeline.mapping_step(cfg, m, *args),), backend,
+        "mapping_step")
+    state = {"p": pipeline._own(engine.p, dev),
+             "m": pipeline._own(engine.m, dev)}
+    corr = state["m"].correction.clone()
+    out = {}
+
+    def perceive():
+        state["p"], *rest = perception(state["p"], corr, pts, msk, t)
+        out["args"] = rest
+
+    def map_tick():
+        p = state["p"]
+        odom_pose, out_pts, out_mask, _ = out["args"]
+        (state["m"],) = mapping_graph(
+            state["m"], p.odo.corner_last.xyz, p.odo.corner_last.mask,
+            p.odo.surf_last.xyz, p.odo.surf_last.mask, out_pts, out_mask,
+            odom_pose, pts, msk, t, p.imu)
+
+    for _ in range(2):              # warm-up, then capture (+ one replay)
+        perceive()
+        map_tick()
+    half = max(1, reps // 2)
+    return [("perception_step (CUDA graph replay)", perceive, reps),
+            ("mapping_step (CUDA graph replay)", map_tick, half)]
 
 
 def _num(x, fmt):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.symeig import symeig
+
 _EPS = 1e-9
 
 
@@ -203,10 +205,32 @@ def umeyama_alignment(src, dst, with_scale: bool = False):
     return R, t, s
 
 
+def quat_to_mat(q):
+    """Unit quaternion (w, x, y, z) (..., 4) -> rotation (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1)], -2)
+
+
 def best_fit_transform(src, dst, weights=None):
     """Weighted point-to-point rigid fit: finds T with dst ~ R src + t (the
-    SVD estimator inside ICP verification, mapOptmization.cpp:1012/1060).
-    src, dst: (N,3); weights: (N,) or None."""
+    estimator inside ICP verification, mapOptmization.cpp:1012/1060).
+    src, dst: (N,3); weights: (N,) or None.
+
+    Horn's quaternion method (J. Opt. Soc. Am. A 4, 629, 1987): with the
+    weighted cross-covariance S = sum w xs xd^T of the centred points, the
+    rotation is the unit quaternion of the largest eigenvalue of the 4x4
+    symmetric [[tr S, d^T], [d, S + S^T - tr(S) I]], d = (S_yz - S_zy,
+    S_zx - S_xz, S_xy - S_yx).  It is always a proper rotation, the one
+    the JAX package's SVD fit gives after its reflection fix (Kabsch with
+    det(U Vt) < 0 flipping the last axis, ``_kabsch_rotation``).  The
+    eigenvector comes from ``ops/symeig``: on the card a kernel that reads
+    nothing back, where ``torch.linalg.svd`` synchronizes every call."""
     if weights is None:
         weights = torch.ones(src.shape[0], dtype=src.dtype, device=src.device)
     wsum = torch.clamp(weights.sum(), min=_EPS)
@@ -214,7 +238,15 @@ def best_fit_transform(src, dst, weights=None):
     mu_d = (weights[:, None] * dst).sum(0) / wsum
     xs = src - mu_s
     xd = dst - mu_d
-    R, _, _ = _kabsch_rotation((weights[:, None] * xd).T @ xs)
+    S = (weights[:, None] * xs).T @ xd
+    tr = S[0, 0] + S[1, 1] + S[2, 2]
+    A = S - S.T
+    d = torch.stack([A[1, 2], A[2, 0], A[0, 1]])
+    lower = S + S.T - tr * _eye3(S)
+    N = torch.cat([torch.cat([tr.reshape(1, 1), d[None]], 1),
+                   torch.cat([d[:, None], lower], 1)], 0)
+    _, V = symeig(N)
+    R = quat_to_mat(V[:, 3])
     return rt_to_mat(R, mu_d - R @ mu_s)
 
 
