@@ -70,7 +70,7 @@ events): the same phases and checks over a path that accepts many factors.
 The mesh paths (``parallel/mesh.py``, ``parallel/retrieval.py``, the
 ``mesh`` arguments) come after the merge.  The machine has one card, so:
 M1 is ``SlamEngine(default_config(), mesh=make_mesh(1, 1))`` in this
-process on NCCL at world size 1 over the drive's first 48 scans, held
+process on NCCL at world size 1 over the drive's first 32 scans, held
 against the loop path's first poses within the card's run-to-run spread
 (a second plain run), and it runs while M2's processes drive (for the
 time limit); M2 is two processes on the one card, joined by gloo
@@ -115,12 +115,29 @@ on CPU copies) at B=1 for n = 3, 4, 6 and on 4096 random SPD 6x6 matrices
 with condition numbers up to 1e8 (eigenvalues, reconstruction,
 orthogonality, the degeneracy projector and its flag), timed beside its
 bound and ``torch.linalg.eigh`` on the card.  After the loop path,
-REPEATABLE: two eager engines over the loop drive's first 48 scans must
+REPEATABLE: two eager engines over the loop drive's first 32 scans must
 agree bit for bit, and a graphed engine with them (and with the loop
 path's first published poses); the graphs' nodes, capture time and pool
-memory print; then 24 eager scans under
+memory print; then 12 eager scans under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` list what
 torch still calls nondeterministic.
+
+Every step at one dispatch (``graphs.cond``): the loop tick is a third
+graph whose gates are CUDA-graph conditional nodes, so the loop path's,
+the IMU path's and the ordered path's sync gates cover the whole timed
+window, loop ticks included (the captures' own syncs tagged), and the
+loop ticks' replays print by outcome in CUDA-event and host ms.  After the
+loop path, the CLOSING TICK: its last closing tick again from the state
+going into it (per-tick copies of the small leaves, the end state's banks
+with later rows reset), eager and graphed, bit for bit equal to each
+other and to the path's own tick; the CLOSING-WINDOW LATENCY: a fresh
+graphed engine over the whole drive, a synchronize after every scan, p50
+/ p95 / p99 / max and each tick outcome's latency.  After the repeatable
+phase, the BATCH at S = 8 and 16 (graphed, windows spread over scans 0-80
+of the batch drive, one engine at a time, each freed before the next);
+the batch path at S = 3 is graphed, and an eager S = 3 batch runs behind
+M2 and is compared with it (the same loops, trajectories bit-equal or
+within 5 mm).  Every path warms up 16 scans (the bench's).
 
 It fails (non-zero exit, no ``ok`` line) when there is no card or any
 check fails.  The second-to-last line is the kernel summary, the last the
@@ -132,6 +149,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import os
 import sys
@@ -209,18 +227,16 @@ DRIVES = {
     "cloverleaf": (520, (synthetic.cloverleaf_trajectory,
                          dict(radius=32.0, petals=4))),
 }
-LOOP_WARMUP = 6
+LOOP_WARMUP = 16      # the bench's: the three graphs are captured in it
 ORDERED_SCANS = 96    # ordered path: its drive's first scans (no revisit)
 LATENCY_SCANS = 24    # latency: timed scans after the loop path's warm-up (time)
 CAPACITY_EXTRA = 16   # capacity part 1: scans past the cap (the tool's 64)
-PROFILE_REPS = 3      # profile_stages: calls a sub-stage timing (whole: 1)
+PROFILE_REPS = 1      # profile_stages: calls a sub-stage timing (whole: 1)
 IMU_SCANS = 120       # IMU path: the drive's first scans (no revisit yet)
 SLICE_SCANS = 12      # loop-off slice: the drive's first scans
 SLICE_WARMUP = 4
 RUNNER_SCANS = 24     # scans written out for the MulRan runner
 ATE_BAR = 1.0         # the verify recipe's PASS bar (m)
-RESUME_TOL_M = 1e-2   # resumed against original, one mapping + loop step:
-RESUME_TOL_DEG = 0.1  # float atomics in the voxel filter order their sums
 FACTOR_TOL_M = 1.0    # a loop factor is true within this of ground truth
 # The only sync a path may show outside its loop ticks: the watch's own
 # switch back to the default mode (torch/cuda/__init__.py).
@@ -231,22 +247,54 @@ SYMEIG_BATCH = 4096   # the conditioned batch: random SPD 6x6, condition
 SYMEIG_COND = 1e8     # numbers log-uniform up to this
 # H100 SXM data sheet, fp64 outside the tensor cores (the kernel's type).
 PEAK_FP64_FLOPS = 34e12
-REPEAT_SCANS = 48     # repeatable: the loop drive's first scans, 3 runs
-DET_SCANS = 24        # ... and the deterministic-mode listing's
+REPEAT_SCANS = 32     # repeatable: the loop drive's first scans, 3 runs
+DET_SCANS = 12        # ... and the deterministic-mode listing's
 COPY_LIMIT = 1 << 20  # no leaf this large is copied into a graph per step
+SMALL_LEAF = 4 << 20  # a loop tick's state leaves under this are cloned
+                      # before every tick of the loop path (closing tick)
+BATCH_SIZES = (3, 8, 16)   # sequences a card: windows of the batch drive
+BATCH_FALLBACK = 12        # ... the largest tried if 16 does not fit
+BATCH_EQUAL_M = 5e-3       # graphed against eager batch, if not bit-equal
+K1_SLOT = graphs.SLOTS.index(("knn", 1))
 
 
 def reset_counts():
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch count to 0 (the device counters of
+    conditional bodies flushed first)."""
+    graphs.flush_counts()
     cuda_knn.reset_launches()
     symeig.reset_launches()
 
 
 def launch_counts() -> dict:
-    """kNN calls by k (1, 5) and symeig launches ("symeig", all sizes)."""
+    """kNN calls by k (1, 5) and symeig launches ("symeig", all sizes),
+    those counted on the device in conditional bodies included (one read
+    of the counters)."""
+    graphs.flush_counts()
     out = dict(cuda_knn.launches)
     out["symeig"] = sum(symeig.launches.values())
     return out
+
+
+def free_memory():
+    """Free what dropped engines held: a ``BatchEngine`` and its step
+    graphs (bound methods) refer to each other, so only the cycle
+    collector frees them; then the allocator's cache."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def k1_mark():
+    """The k=1 kNN calls so far: the host count and a device copy of the
+    conditional bodies' counter (no host read)."""
+    return cuda_knn.launches[1], graphs.device_counter("cuda")[K1_SLOT].clone()
+
+
+def k1_between(a, b) -> int:
+    """k=1 calls between two marks (reads the device copies: after the
+    timed window)."""
+    return b[0] - a[0] + int(b[1]) - int(a[1])
 
 
 def check(ok: bool, what: str):
@@ -691,11 +739,14 @@ def stray_syncs(syncs, allowed=()):
 
 
 def check_graphs(label, engine, card):
-    """The engine ran its two steps as graph replays, and no replay copied
-    a leaf of a MiB or more into the graphs (the banks stay in place).
-    Prints what the graphs hold."""
+    """The engine ran its steps as graph replays (the loop tick's too
+    where loop closure is on and it ticked more than once), and no replay
+    copied a leaf of a MiB or more into the graphs (the banks stay in
+    place).  Prints what the graphs hold."""
+    ticking = engine.config.loop.enabled and engine.loop_ticks > 1
     check(engine.graphs is not None
-          and all(g.captured and g.replays > 0 for g in engine.graphs),
+          and all(g.captured and g.replays > 0 for g in engine.graphs[:2])
+          and (engine.graphs[2].replays > 0) == ticking,
           f"{label}: the steps did not run as CUDA graph replays")
     largest = max(g.copies.largest for g in engine.graphs)
     print(f"{label} graphs: {graphs.summary(engine.graphs)} "
@@ -773,35 +824,42 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
         else ((lambda i: None), [])
     reset_counts()
 
-    # Watch every loop tick from outside: which recorded warnings fall
-    # inside it, CUDA events around it, the host clock, and the (device)
-    # closure counter it returns, read after the run.
+    # Watch every loop tick from outside the graphs: which recorded
+    # warnings fall inside it, CUDA events around it, the host clock, its
+    # k=1 kNN calls (host and device counters) and the closure counter
+    # (device copies, read after the run), whether it was the loop
+    # graph's warm-up, capture or a replay, and a copy of the small leaves
+    # of the state going in (the closing-tick phase rebuilds it).
     rec: list = []
     ticks = []
-    inner = pipeline.loop_step
+    inner = engine.loop_tick
 
-    def watched_loop_step(config, mst, **kw):
+    def watched_tick():
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
-        n0, k1 = len(rec), cuda_knn.launches[1]
+        calls = engine.graphs[2].calls
+        small = [(name, x.clone()) for name, x in
+                 export.state_leaves(engine.m, "m.")
+                 if x.numel() * x.element_size() < SMALL_LEAF]
+        n0, k0 = len(rec), k1_mark()
         ev0.record()
         h0 = time.perf_counter()
-        out = inner(config, mst, **kw)
+        inner()
         host_ms = 1e3 * (time.perf_counter() - h0)
         ev1.record()
         ticks.append(dict(w0=n0, w1=len(rec), ev0=ev0, ev1=ev1,
-                          host_ms=host_ms, closed_after=out.loops_closed,
-                          k1=cuda_knn.launches[1] - k1))
-        return out
+                          host_ms=host_ms, k0=k0, k1=k1_mark(), small=small,
+                          closed_after=engine.m.loops_closed.clone(),
+                          kind="capture" if calls == 0 else "replay"))
 
-    pipeline.loop_step = watched_loop_step
-    try:
+    engine.loop_tick = watched_tick
+    with CaptureWatch() as captures:
         for i in range(LOOP_WARMUP):
             feed_imu(i)
             engine.process_scan(pts[i], msk[i], t=i * 0.1)
         torch.cuda.synchronize()
         with warnings.catch_warnings(record=True) as caught:
-            rec = caught
+            rec = captures.rec = caught
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             t0 = time.perf_counter()
@@ -811,18 +869,19 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()          # the window's one final sync
         wall = time.perf_counter() - t0
-    finally:
-        pipeline.loop_step = inner
+    del engine.loop_tick
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    # Syncs: those inside a loop tick, and the rest.
+    # Syncs: those inside a loop tick, and the rest; the graph captures'
+    # own (one before each capture) apart.
     all_syncs = sync_warnings(rec)
     in_tick = set()
     for tk in ticks:
         in_tick.update(id(w) for w in rec[tk["w0"]:tk["w1"]])
     loop_syncs = [w for w in all_syncs if id(w) in in_tick]
     other_syncs = [w for w in all_syncs if id(w) not in in_tick]
+    in_capture = [w for w in all_syncs if id(w) in captures.ids]
 
     closed_before = 0
     for tk in ticks:
@@ -830,14 +889,17 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
         tk["closed"] = after > closed_before
         closed_before = after
         tk["ms"] = tk["ev0"].elapsed_time(tk["ev1"])
-        tk["syncs"] = len(sync_warnings(rec[tk["w0"]:tk["w1"]]))
+        tk["syncs"] = len([w for w in sync_warnings(rec[tk["w0"]:tk["w1"]])
+                           if id(w) not in captures.ids])
+        tk["k1"] = k1_between(tk["k0"], tk["k1"])
 
     def mean(xs):
         return sum(xs) / len(xs) if xs else float("nan")
 
-    closed = [tk for tk in ticks if tk["closed"]]
-    verified = [tk for tk in ticks if tk["k1"] > 0 and not tk["closed"]]
-    idle = [tk for tk in ticks if tk["k1"] == 0]
+    replays = [tk for tk in ticks if tk["kind"] == "replay"]
+    closed = [tk for tk in replays if tk["closed"]]
+    verified = [tk for tk in replays if tk["k1"] > 0 and not tk["closed"]]
+    idle = [tk for tk in replays if tk["k1"] == 0]
 
     est = engine.trajectory_array()
     raw = engine.trajectory_array(retro_correct=False)
@@ -876,9 +938,16 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
           f"recall={pr['recall']} revisit_events={pr['revisit_events']} "
           f"(gate {FACTOR_TOL_M} m) ate_m={ate:.4f} "
           f"ate_as_published_m={ate_raw:.4f} [{card}]", flush=True)
+    for tk in ticks:
+        if tk["kind"] != "replay":
+            print(f"{label} loop tick {tk['kind']} (a warm-up on copies "
+                  f"of the small leaves, gates in 'select' mode, then the "
+                  f"capture and a replay): ms_cuda_events={tk['ms']:.3f} "
+                  f"ms_host={tk['host_ms']:.3f} closed={tk['closed']} "
+                  f"k1_launches={tk['k1']} [{card}]", flush=True)
     for name, group in (("closed", closed), ("verified, not closed", verified),
                         ("no candidate", idle)):
-        print(f"{label} loop ticks {name}: n={len(group)} "
+        print(f"{label} loop tick replays {name}: n={len(group)} "
               f"mean_ms_cuda_events={mean([t['ms'] for t in group]):.3f} "
               f"mean_ms_host={mean([t['host_ms'] for t in group]):.3f} "
               f"max_ms_host={max([t['host_ms'] for t in group], default=0):.3f} "
@@ -886,15 +955,21 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
               f"mean_k1_launches={mean([t['k1'] for t in group]):.2f} "
               f"[{card}]", flush=True)
     print(f"{label} host syncs in the {timed} timed scans: loop_ticks="
-          f"{len(loop_syncs)} elsewhere={len(other_syncs)} [{card}]",
-          flush=True)
-    print_syncs("loop tick", loop_syncs)
-    print_syncs("elsewhere", other_syncs)
+          f"{len([w for w in loop_syncs if id(w) not in captures.ids])} "
+          f"elsewhere={len([w for w in other_syncs if id(w) not in captures.ids])}"
+          f" graph_captures={len(in_capture)} ({captures.captures} "
+          f"captures) [{card}]", flush=True)
+    print_syncs("loop tick", [w for w in loop_syncs
+                              if id(w) not in captures.ids])
+    print_syncs("elsewhere", [w for w in other_syncs
+                              if id(w) not in captures.ids])
+    print_syncs("graph captures", in_capture)
 
     check(est.shape == (n_scans, 4, 4), f"trajectory shape {est.shape}")
     check(bool(np.isfinite(est).all()) and bool(np.isfinite(raw).all()),
           f"{label}: trajectory is not finite")
-    check(len(closed) == loops_closed, "closed ticks and loops_closed differ")
+    check(sum(tk["closed"] for tk in ticks) == loops_closed,
+          "closed ticks and loops_closed differ")
     check(launches[1] <= k1_cap,
           f"{label}: k=1 launches {launches[1]} over {k1_cap}")
     check(launches[5] == expected5,
@@ -908,11 +983,15 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
         check(loops_closed == 0 and pr["accepted"] == 0,
               f"{label}: a loop closed on a drive without a revisit: {pr}")
     check(ate < ATE_BAR, f"{label}: ATE {ate} >= {ATE_BAR} m")
-    # perception_step and mapping_step are graph replays, which cannot
-    # sync; nothing around them does either (the IMU pushes included).
-    stray = stray_syncs(other_syncs)
-    check(not stray, f"{label}: a sync outside the loop ticks: "
+    # Every step is a graph replay, which cannot sync (the loop tick's
+    # gates are conditional nodes); nothing around them does either (the
+    # IMU pushes included): the whole window, loop ticks included, holds
+    # no sync but the captures' own.
+    stray = stray_syncs(all_syncs, captures.ids)
+    check(not stray, f"{label}: a host sync in the timed window: "
           + ", ".join(sorted({where(w) for w in stray})))
+    check(engine.graphs[2].captured and len(replays) == len(ticks) - 1,
+          f"{label}: the loop ticks did not run as graph replays")
     # The ICP's rigid fit is Horn's method on the symeig kernel: no svd.
     fit = [w for w in loop_syncs if "utils/se3.py" in where(w)]
     check(not fit, f"{label}: the ICP fit synchronized: "
@@ -920,8 +999,147 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
     check(launches["symeig"] > 0, f"{label}: symeig never launched")
     check_graphs(label, engine, card)
     summary = dict(scans_per_s=fps, ate=ate, ate_raw=ate_raw,
-                   syncs_elsewhere=len(other_syncs), peak=peak - held)
+                   syncs_elsewhere=len(stray), peak=peak - held,
+                   ticks=ticks)
     return launches, engine, summary
+
+
+def run_closing_tick(cfg, engine, summary, card):
+    """The loop path's last closing tick again, from the state going into
+    it: its small leaves as the watch copied them, the keyframe and
+    descriptor banks as the path left them with the rows appended after the
+    tick back at their initial value.  The eager tick (host reads) and a
+    captured ``loop_step`` graph (conditional nodes; its first call the
+    warm-up, gates in "select" mode) must give the same state bit for bit,
+    and the state the path's own graphed tick left: its loop bank, and the
+    keyframe poses up to the tick's count (a closed tick is the last to
+    change either)."""
+    ticks = summary["ticks"]
+    closing = [i for i, tk in enumerate(ticks) if tk["closed"]]
+    check(bool(closing), "closing tick: the loop path closed no loop")
+    tk = ticks[closing[-1]]
+    small = dict(tk["small"])
+    rows = {"m.kf.": int(small["m.kf.count"]),
+            "m.bank.": int(small["m.bank.count"])}
+    fresh = dict(export.state_leaves(
+        pipeline.init_mapper_state(cfg, engine.device), "m."))
+
+    def rebuild(path, now):
+        if path in small:
+            return small[path].clone()
+        prefix = path[:path.index(".", 2) + 1]
+        check(prefix in rows, f"closing tick: a large leaf {path}")
+        out = fresh[path]
+        out[:rows[prefix]] = now[:rows[prefix]]
+        return out
+
+    state = export._with_leaves(engine.m, rebuild, "m.")
+    del fresh
+
+    def own_small(st):
+        """Small leaves copied, the banks shared (the tick only reads
+        them)."""
+        return export._with_leaves(
+            st, lambda _, x: x.clone()
+            if x.numel() * x.element_size() < SMALL_LEAF else x, "m.")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = pipeline.loop_step(cfg, own_small(state))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    g = graphs.StepGraph(lambda m: (pipeline.loop_step(cfg, m),),
+                         graphs.CudaCapture(engine.device), "loop_step")
+    (warm,) = g(own_small(state))
+    warm = [x.clone() for x in graphs.flatten(warm)]
+    (graphed,) = g(own_small(state))
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    g._copy_in(graphs.flatten((own_small(state),)))
+    ev0.record()
+    g._replay()
+    ev1.record()
+    torch.cuda.synchronize()
+    want = graphs.flatten(eager)
+    same = all(torch.equal(a, b) for a, b in
+               zip(graphs.flatten(graphed), want))
+    same_warm = all(torch.equal(a, b) for a, b in zip(warm, want))
+    k = rows["m.kf."]
+    faithful = all(torch.equal(a, b) for a, b in zip(eager.loops,
+                                                     engine.m.loops)) \
+        and torch.equal(eager.kf.poses6[:k], engine.m.kf.poses6[:k])
+    closed = int(eager.loops_closed) > int(small["m.loops_closed"])
+    print(f"closing tick (the loop path's tick {closing[-1]}, "
+          f"{k} keyframes): eager (host reads) s={eager_s:.3f}; graphed "
+          f"replay ms_cuda_events={ev0.elapsed_time(ev1):.3f} "
+          f"{graphs.summary([g])}; graphed bit-equal to eager={same} "
+          f"warm-up ('select') bit-equal={same_warm} closed={closed} "
+          f"equal to the loop path's own graphed tick={faithful} [{card}]",
+          flush=True)
+    check(closed, "closing tick: the rebuilt state did not close")
+    check(same and same_warm, "closing tick: the graphed tick differs from "
+          "the eager tick")
+    check(faithful, "closing tick: the rebuilt tick differs from the loop "
+          "path's own")
+    del state, eager, graphed, warm, g
+    free_memory()
+
+
+def run_closing_latency(cfg, pts, msk, card):
+    """Per-scan latency over a window that closes a loop: a fresh graphed
+    engine over the whole loop drive, a synchronize after every scan (the
+    bench's latency measure), the bench's WARMUP scans (in which the three
+    graphs are captured) excluded.  Prints p50 / p95 / p99 / max, the
+    closing scan's latency and the latency of the scans by their loop
+    tick's outcome.  Returns the kNN launches."""
+    torch.cuda.synchronize()
+    engine = SlamEngine(cfg)
+    reset_counts()
+    lat, marks = [], []
+    for i in range(len(pts)):
+        ticks, k0 = engine.loop_ticks, k1_mark()
+        closed0 = engine.m.loops_closed.clone()
+        t0 = time.perf_counter()
+        engine.process_scan(pts[i], msk[i], t=i * 0.1)
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+        marks.append((engine.loop_ticks > ticks, k0, k1_mark(), closed0,
+                      engine.m.loops_closed.clone()))
+    launches = launch_counts()
+    kind = []
+    for ticked, a, b, c0, c1 in marks:
+        if not ticked:
+            kind.append("no loop tick")
+        elif int(c1) > int(c0):
+            kind.append("closed")
+        else:
+            kind.append("verified" if k1_between(a, b) > 0
+                        else "no candidate")
+    w = bench.WARMUP
+    window = np.asarray(lat[w:])
+    pct = {q: float(np.percentile(window, q)) for q in (50, 95, 99)}
+    by = {}
+    for name in ("no loop tick", "no candidate", "verified", "closed"):
+        xs = [x for x, k in zip(lat[w:], kind[w:]) if k == name]
+        by[name] = xs
+    closing = [i for i in range(w, len(lat)) if kind[i] == "closed"]
+    print(f"closing-window latency (fresh graphed engine, default_config, "
+          f"{len(lat)} scans, a synchronize after every scan, the first {w} "
+          f"excluded): p50={pct[50]:.2f} p95={pct[95]:.2f} p99={pct[99]:.2f} "
+          f"max={window.max():.2f} ms; closing scans {closing} at "
+          f"{[round(lat[i], 2) for i in closing]} ms; knn_launches="
+          f"{launches} [{card}]", flush=True)
+    for name, xs in by.items():
+        print(f"closing-window latency, scans with {name}: n={len(xs)} "
+              f"mean_ms={np.mean(xs) if xs else float('nan'):.2f} max_ms="
+              f"{max(xs, default=float('nan')):.2f} [{card}]", flush=True)
+    check(bool(closing), "closing-window latency: no tick closed a loop in "
+          "the window")
+    check(bool(np.isfinite(window).all()), "closing-window latency: not "
+          "finite")
+    del engine
+    free_memory()
+    return launches
 
 
 def write_mulran_directory(root, scans, valids, gt):
@@ -1021,6 +1239,9 @@ def checkpoint_resume(engine, pts, msk, card):
             odom_pose, scan, mask, t, p.imu)
         m = pipeline.loop_step(cfg, m)
         poses.append(m.pose.cpu().numpy())
+    # Since the sums on the path are ordered (sorting index_puts), the two
+    # steps run the same kernels on the same bits: equal, not near.
+    same_step = bool(np.array_equal(poses[0], poses[1]))
     d_m = float(np.linalg.norm(poses[0][:3, 3] - poses[1][:3, 3]))
     # The angle between the rotations from the chord ||R0 - R1|| = 2 sqrt(2)
     # sin(angle / 2): 0 for equal matrices, where the trace of R0^T R1 is
@@ -1032,15 +1253,13 @@ def checkpoint_resume(engine, pts, msk, card):
           f"state_bytes={raw} save_s={save_s:.2f} load_s={load_s:.2f} "
           f"fields_differing={len(differing)} host_counters_equal="
           f"{host_equal} trajectory_array_equal={same_traj} "
-          f"next_mapping_and_loop_step: d_pose_m={d_m:.2e} "
-          f"d_rot_deg={d_deg:.2e} (bars {RESUME_TOL_M} m, {RESUME_TOL_DEG} "
-          f"deg) [{card}]", flush=True)
+          f"next_mapping_and_loop_step: bit_equal={same_step} "
+          f"d_pose_m={d_m:.2e} d_rot_deg={d_deg:.2e} [{card}]", flush=True)
     check(not differing, f"checkpoint: fields differ after load: {differing}")
     check(host_equal and same_traj, "checkpoint: the resumed engine's "
           "counters or trajectory differ")
-    check(d_m < RESUME_TOL_M and d_deg < RESUME_TOL_DEG,
-          f"checkpoint: the resumed engine's next step differs: {d_m} m, "
-          f"{d_deg} deg")
+    check(same_step, f"checkpoint: the resumed engine's next step differs: "
+          f"{d_m} m, {d_deg} deg")
 
 
 def real_cloud_checks(engine, clouds, card):
@@ -1314,21 +1533,37 @@ def _seq(state, s):
     return type(state)(*(_seq(leaf, s) for leaf in state))
 
 
-def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
-    """``BatchEngine(cfg, n_seq=3)`` on the card over three 240-scan windows
-    of the batch drive, loop closure on; then the cross-sequence merge.
-    ``single`` is the loop path's summary in this call.  Returns (kNN
-    launches of the drive, the engine, what the merge needs)."""
+def batch_starts(S: int) -> tuple:
+    """Window starts for S sequences: BATCH_STARTS for 3, else spread
+    evenly over the same 0-80 (every window covers 1.2 laps and revisits
+    its start, so no more rays are cast)."""
+    if S == len(BATCH_STARTS):
+        return BATCH_STARTS
+    return tuple(int(x) for x in np.linspace(BATCH_STARTS[0],
+                                             BATCH_STARTS[-1], S).round())
+
+
+def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card, S=3,
+                   eager=False, beside=""):
+    """``BatchEngine(cfg, n_seq=S)`` on the card over S 240-scan windows
+    of the batch drive (``batch_starts``), loop closure on, its three
+    batched steps as graph replays (``eager=True``: op by op, the loop
+    tick's gates host reads).  ``single`` is the loop path's summary in
+    this call; ``beside`` says what else runs meanwhile.  Returns (kNN
+    launches of the drive, the engine, a summary)."""
     from sc_lego_loam_tpu_torch.parallel import batch as pbatch
 
-    S, n = len(BATCH_STARTS), BATCH_WINDOW
-    window = torch.tensor(BATCH_STARTS, device="cuda")
-    gts = [gt_all[s0:s0 + n] for s0 in BATCH_STARTS]
+    starts, n = batch_starts(S), BATCH_WINDOW
+    mode = "eager" if eager else "graphed"
+    label = f"batch path S={S} ({mode}{', ' + beside if beside else ''})"
+    window = torch.tensor(starts, device="cuda")
+    gts = [gt_all[s0:s0 + n] for s0 in starts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    engine = pbatch.BatchEngine(cfg, n_seq=S)
+    engine = pbatch.BatchEngine(cfg, n_seq=S, eager=eager)
     check(engine.device.type == "cuda", "the default device is not the card")
+    check((engine.graphs is None) == eager, f"{label}: graphs {eager=}")
     reset_counts()
 
     rec: list = []
@@ -1337,36 +1572,49 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
     ticks = []
 
     def watch(attr, name):
+        """Where the vmapped callables ran (eagerly, or at a graph's
+        warm-up and capture): their functorch fallback warnings."""
         inner = getattr(engine, attr)
 
         def watched(*a, **kw):
-            n0, k1 = len(rec), cuda_knn.launches[1]
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            h0 = time.perf_counter()
+            n0 = len(rec)
             out = inner(*a, **kw)
-            host_ms = 1e3 * (time.perf_counter() - h0)
-            ev1.record()
             spans[name].append((n0, len(rec)))
-            if name == "loop":
-                ticks.append(dict(ev0=ev0, ev1=ev1, host_ms=host_ms,
-                                  k1=cuda_knn.launches[1] - k1,
-                                  w0=n0, w1=len(rec)))
             return out
         setattr(engine, attr, watched)
 
+    originals = {attr: getattr(engine, attr)
+                 for attr in ("_perception", "_mapping", "_descriptors")}
     watch("_perception", "perception")
     watch("_mapping", "mapping")
     watch("_descriptors", "descriptors")
-    watch("_loop_tick", "loop")
+    tick = engine._loop_tick
+
+    def watched_tick(*a):
+        n0, k0 = len(rec), k1_mark()
+        calls = 0 if eager else engine.graphs[2].calls
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        h0 = time.perf_counter()
+        out = tick(*a)
+        host_ms = 1e3 * (time.perf_counter() - h0)
+        ev1.record()
+        spans["loop"].append((n0, len(rec)))
+        ticks.append(dict(ev0=ev0, ev1=ev1, host_ms=host_ms, k0=k0,
+                          k1=k1_mark(), w0=n0, w1=len(rec),
+                          kind="replay" if eager or calls else "capture"))
+        return out
+
+    engine._loop_tick = watched_tick
 
     def step(i):
         engine.process_scans(pts_all[window + i], msk_all[window + i],
                              t=i * 0.1)
 
-    with warnings.catch_warnings(record=True) as caught:
-        rec = caught
+    with warnings.catch_warnings(record=True) as caught, \
+            CaptureWatch() as captures:
+        rec = captures.rec = caught
         warnings.simplefilter("always")
         for i in range(LOOP_WARMUP):
             step(i)
@@ -1392,12 +1640,14 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
                        str(rec[j].message)})
 
     drops = {name: fallbacks(name) for name in spans}
-    # Host syncs of the timed window: inside loop ticks, and elsewhere.
+    # Host syncs of the timed window: inside loop ticks, and elsewhere
+    # (the graph captures' own apart).
     in_tick = set()
     for a, b in spans["loop"]:
         in_tick.update(range(max(a, w_start), b))
     timed_rec = list(enumerate(rec))[w_start:]
-    syncs = [(j, w) for j, w in timed_rec if "synchroniz" in str(w.message)]
+    syncs = [(j, w) for j, w in timed_rec if "synchroniz" in str(w.message)
+             and id(w) not in captures.ids]
     loop_syncs = [w for j, w in syncs if j in in_tick]
     other_syncs = [w for j, w in syncs if j not in in_tick]
 
@@ -1407,8 +1657,8 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
     traj = engine.trajectory_array()
     kf_n = engine.map.kf.count.tolist()
     closed = engine.loops_closed.tolist()
-    print(f"batch path (BatchEngine, default_config, 3 sequences, loop "
-          f"closure on): windows={BATCH_STARTS} scans={n} warmup="
+    print(f"{label} (BatchEngine, default_config, loop closure on): "
+          f"windows={starts} scans={n} warmup="
           f"{LOOP_WARMUP} batched_steps_per_s={steps_per_s:.3f} "
           f"sequence_scans_per_s={seq_fps:.3f} (single SlamEngine loop path "
           f"in this call: {single['scans_per_s']:.3f} scans/s; ratio "
@@ -1418,19 +1668,25 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
           f"knn_launches_k5={launches[5]} knn_launches_k1={launches[1]} "
           f"loops_closed={closed} [{card}]", flush=True)
     stages = engine.timer.summary(skip_first=LOOP_WARMUP)
-    print("batch path stages, host ms to launch (mean): " + " ".join(
+    print(f"{label} stages, host ms to launch (mean): " + " ".join(
         f"{name}={1e3 * st['mean']:.2f} (n={st['n']})"
         for name, st in sorted(stages.items())) + f" [{card}]", flush=True)
+    if not eager:
+        print(f"{label} graphs: {graphs.summary(engine.graphs)} "
+              f"graph_captures={captures.captures} [{card}]", flush=True)
     for t in ticks:
         t["ms"] = t["ev0"].elapsed_time(t["ev1"])
         t["syncs"] = sum(1 for j in range(t["w0"], t["w1"])
-                         if "synchroniz" in str(rec[j].message))
-    verified = [t for t in ticks if t["k1"] > 0]
-    idle = [t for t in ticks if t["k1"] == 0]
+                         if "synchroniz" in str(rec[j].message)
+                         and id(rec[j]) not in captures.ids)
+        t["k1"] = k1_between(t["k0"], t["k1"])
+    replays = [t for t in ticks if t["kind"] == "replay"]
+    verified = [t for t in replays if t["k1"] > 0]
+    idle = [t for t in replays if t["k1"] == 0]
     for name, group in (("with a verification", verified),
                         ("no candidate", idle)):
         ms = [t["ms"] for t in group]
-        print(f"batch path loop ticks {name}: n={len(group)} mean_ms_cuda_"
+        print(f"{label} loop ticks {name}: n={len(group)} mean_ms_cuda_"
               f"events={np.mean(ms) if ms else float('nan'):.3f} "
               f"max_ms_host={max([t['host_ms'] for t in group], default=0):.3f}"
               f" mean_host_syncs="
@@ -1438,15 +1694,15 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
               f"mean_k1_launches="
               f"{np.mean([t['k1'] for t in group]) if group else 0:.2f} "
               f"[{card}]", flush=True)
-    print(f"batch path host syncs in the {timed} timed steps: loop_ticks="
-          f"{len(loop_syncs)} elsewhere={len(other_syncs)} ("
-          f"{len(other_syncs) / timed:.2f} a step; the single loop path: "
-          f"{single['syncs_elsewhere'] / (len(gt_all[:240]) - LOOP_WARMUP):.2f}"
-          f" a scan) [{card}]", flush=True)
-    print_syncs("batch loop tick", loop_syncs)
-    print_syncs("batch elsewhere", other_syncs)
+    print(f"{label} host syncs in the {timed} timed steps: loop_ticks="
+          f"{len(loop_syncs)} elsewhere={len(other_syncs)} graph_captures="
+          f"{captures.captures} ({len(other_syncs) / timed:.2f} a step; the "
+          f"single loop path: {single['syncs_elsewhere']}) [{card}]",
+          flush=True)
+    print_syncs(f"{label} loop tick", loop_syncs)
+    print_syncs(f"{label} elsewhere", other_syncs)
     for name, found in drops.items():
-        print(f"batch path functorch per-sample fallbacks in {name}: "
+        print(f"{label} functorch per-sample fallbacks in {name}: "
               f"{len(found)} {found} [{card}]", flush=True)
 
     ates, prs = [], []
@@ -1469,35 +1725,100 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card):
                                             tol_m=FACTOR_TOL_M)
         ates.append((ate, ate_graph))
         prs.append(pr)
-        print(f"batch sequence {s} (scans {BATCH_STARTS[s]}-"
-              f"{BATCH_STARTS[s] + n - 1}): ate_m={ate:.4f} (fused, as "
+        print(f"{label} sequence {s} (scans {starts[s]}-"
+              f"{starts[s] + n - 1}): ate_m={ate:.4f} (fused, as "
               f"published) ate_keyframe_graph_m={ate_graph:.4f} keyframes={k} "
               f"loops_closed={closed[s]} factors accepted={pr['accepted']} "
               f"true={pr['true_factors']} precision={pr['precision']} "
               f"recall={pr['recall']} [{card}]", flush=True)
 
     check(traj.shape == (S, n, 4, 4) and bool(np.isfinite(traj).all()),
-          f"batch path: trajectories {traj.shape} not finite or misshapen")
+          f"{label}: trajectories {traj.shape} not finite or misshapen")
     for s in range(S):
         check(ates[s][0] < ATE_BAR and ates[s][1] < ATE_BAR,
-              f"batch sequence {s}: ATE {ates[s]} >= {ATE_BAR} m")
-        check(closed[s] >= 1, f"batch sequence {s}: no loop closed")
+              f"{label} sequence {s}: ATE {ates[s]} >= {ATE_BAR} m")
+        check(closed[s] >= 1, f"{label} sequence {s}: no loop closed")
         check(prs[s]["accepted"] == 0 or prs[s]["precision"] == 1.0,
-              f"batch sequence {s}: accepted factors not all true: {prs[s]}")
+              f"{label} sequence {s}: accepted factors not all true: "
+              f"{prs[s]}")
     check(launches[5] > 0 and launches[1] > 0,
-          f"batch path: a kNN instantiation never launched: {launches}")
+          f"{label}: a kNN instantiation never launched: {launches}")
     check(launches[5] == expected_k5(cfg, engine._map_ticks),
-          f"batch path: k=5 calls {launches[5]}, expected one batched call "
+          f"{label}: k=5 calls {launches[5]}, expected one batched call "
           f"per single-sequence call")
     for name in ("perception", "mapping", "descriptors"):
-        check(not drops[name], f"batch path: functorch fallbacks in {name}: "
+        check(not drops[name], f"{label}: functorch fallbacks in {name}: "
               f"{drops[name]}")
-    stray = stray_syncs(other_syncs)
-    check(not stray, "batch path: a new sync outside the loop ticks: "
+    # Graphed, the whole window holds no sync but the captures' own; eager,
+    # none outside the loop ticks.
+    stray = stray_syncs(other_syncs + ([] if eager else loop_syncs))
+    check(not stray, f"{label}: a host sync in the timed window: "
           + ", ".join(sorted({where(w) for w in stray})))
+    if not eager:
+        check(all(g.captured and g.replays > 0 for g in engine.graphs),
+              f"{label}: the steps did not run as CUDA graph replays")
+    del engine._loop_tick
+    for attr, fn in originals.items():
+        setattr(engine, attr, fn)
     summary = dict(seq_fps=seq_fps, steps_per_s=steps_per_s, peak=peak - held,
-                   ates=ates, drops=drops)
+                   ates=ates, drops=drops, traj=traj, closed=closed, prs=prs,
+                   loops=[x.cpu().numpy() for x in engine.loops],
+                   S=S, starts=starts)
     return launches, engine, summary
+
+
+def compare_batches(graphed, eager, card):
+    """The graphed and the eager S=3 batch from the same scans: the same
+    loops per sequence, every factor true, trajectories bit-equal or within
+    BATCH_EQUAL_M."""
+    same = np.array_equal(graphed["traj"], eager["traj"])
+    d = float(np.abs(graphed["traj"][..., :3, 3]
+                     - eager["traj"][..., :3, 3]).max())
+    same_loops = graphed["closed"] == eager["closed"] and all(
+        np.array_equal(a, b) for a, b in zip(graphed["loops"],
+                                             eager["loops"]))
+    print(f"batch S=3 graphed against eager in this call: trajectories "
+          f"bit-equal={same} (max |d position| {d:.3e} m) loops_closed "
+          f"{graphed['closed']} / {eager['closed']} loop banks equal="
+          f"{same_loops} sequence_scans_per_s {graphed['seq_fps']:.3f} / "
+          f"{eager['seq_fps']:.3f} (ratio "
+          f"{graphed['seq_fps'] / eager['seq_fps']:.3f}) [{card}]",
+          flush=True)
+    check(graphed["closed"] == eager["closed"],
+          "batch S=3: graphed and eager closed different loops")
+    check(same or d < BATCH_EQUAL_M, f"batch S=3: graphed and eager "
+          f"trajectories {d} m apart")
+
+
+def run_batch_sizes(cfg, pts_all, msk_all, gt_all, single, card):
+    """The graphed batch at every S of BATCH_SIZES past 3, one engine at a
+    time (each freed before the next); an S whose banks do not fit the
+    card falls back to BATCH_FALLBACK.  Returns {S: (launches, summary)}."""
+    out = {}
+    for S in BATCH_SIZES:
+        if S == len(BATCH_STARTS):
+            continue
+        try:
+            launches, engine, summary = run_batch_path(
+                cfg, pts_all, msk_all, gt_all, single, card, S=S)
+        except torch.cuda.OutOfMemoryError as err:
+            free_memory()
+            print(f"batch path S={S}: does not fit the card ({err}); "
+                  f"S={BATCH_FALLBACK} instead [{card}]", flush=True)
+            S = BATCH_FALLBACK
+            launches, engine, summary = run_batch_path(
+                cfg, pts_all, msk_all, gt_all, single, card, S=S)
+        out[S] = (launches, summary)
+        del engine
+        free_memory()
+    for S, (_, sm) in sorted(out.items()):
+        print(f"batch S={S} (graphed): sequence_scans_per_s="
+              f"{sm['seq_fps']:.3f} ratio_to_single="
+              f"{sm['seq_fps'] / single['scans_per_s']:.3f} peak_mem_bytes="
+              f"{sm['peak']} loops_closed={sm['closed']} factors_true="
+              f"{[p['true_factors'] for p in sm['prs']]} ate_m="
+              f"{[round(a[0], 4) for a in sm['ates']]} [{card}]", flush=True)
+    return out
 
 
 def run_merge(cfg, engine, gt_all, card):
@@ -1760,7 +2081,7 @@ def run_repeatable(cfg, pts, msk, loop_engine, card):
 # it, joined by gloo, which runs all_reduce / broadcast on CUDA tensors
 # (NCCL refuses two ranks on one card); M1 is one process on NCCL.
 
-MESH1_SCANS = 48          # M1: the headline drive's first scans
+MESH1_SCANS = REPEAT_SCANS  # M1: the headline drive's first scans
 MESH1_FLOOR_M = 5e-3      # M1's tolerance is max(2 x run-to-run, this)
 MESH2_WARMUP = 6
 MESH3_STEPS = 12          # M3: the batch drive's first steps, windows 0, 1
@@ -2127,40 +2448,25 @@ def run_ordered_path(pts, msk, gt, card):
     of beam-ordered scans, no de-skew, loop closure on) over the ordered
     drive through ``tools.bench.run_engine`` (the bench's 16 warm-up
     scans).  Gates: ATE, k=5 launches (6 a mapping tick), no host sync
-    outside loop ticks and the two graph captures.  Returns the kNN
-    launches."""
+    outside the three graph captures (loop ticks included).  Returns the
+    kNN launches."""
     cfg = synthetic_config()
     check(cfg.lidar.ordered and not cfg.odom.deskew and cfg.loop.enabled,
           "synthetic_config changed")
-    rec: list = []
-    in_tick = set()
-    inner = pipeline.loop_step
-
-    def watched_loop_step(config, mst, **kw):
-        n0 = len(rec)
-        out = inner(config, mst, **kw)
-        in_tick.update(id(w) for w in rec[n0:])
-        return out
-
     reset_counts()
-    pipeline.loop_step = watched_loop_step
-    try:
-        with warnings.catch_warnings(record=True) as caught, \
-                CaptureWatch() as captures:
-            rec = captures.rec = caught
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                engine, fps = bench.run_engine(cfg, pts, msk, bench.WARMUP,
-                                               device="cuda")
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-    finally:
-        pipeline.loop_step = inner
+    with warnings.catch_warnings(record=True) as caught, \
+            CaptureWatch() as captures:
+        rec = captures.rec = caught
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine, fps = bench.run_engine(cfg, pts, msk, bench.WARMUP,
+                                           device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     launches = launch_counts()
     syncs = sync_warnings(rec)
-    other = [w for w in syncs if id(w) not in in_tick]
-    in_capture = [w for w in other if id(w) in captures.ids]
+    in_capture = [w for w in syncs if id(w) in captures.ids]
     est = engine.trajectory_array()
     ate = evaluate.ate_rmse(est, gt[:len(est)])
     expected = expected_k5(cfg, engine.map_ticks)
@@ -2172,26 +2478,26 @@ def run_ordered_path(pts, msk, gt, card):
           f"mapping_ticks={engine.map_ticks} loop_ticks={engine.loop_ticks} "
           f"knn_launches_k5={launches[5]} (expected {expected}) "
           f"knn_launches_k1={launches[1]} loops_closed="
-          f"{int(engine.loops_closed)} ate_m={ate:.4f} host_syncs: loop_ticks="
-          f"{len(syncs) - len(other)} graph_captures={len(in_capture)} "
-          f"elsewhere={len(other) - len(in_capture)} (all scans) "
+          f"{int(engine.loops_closed)} ate_m={ate:.4f} host_syncs: "
+          f"graph_captures={len(in_capture)} elsewhere (loop ticks "
+          f"included)={len(syncs) - len(in_capture)} (all scans) "
           f"[{card}]", flush=True)
     print("ordered path stages, host ms to launch (mean): " + " ".join(
         f"{name}={1e3 * st['mean']:.2f} (n={st['n']})"
         for name, st in sorted(stages.items())) + f" [{card}]", flush=True)
     print_syncs("ordered path, graph captures", in_capture)
     print_syncs("ordered path, elsewhere",
-                [w for w in other if id(w) not in captures.ids])
+                [w for w in syncs if id(w) not in captures.ids])
     check(est.shape == (len(pts), 4, 4) and bool(np.isfinite(est).all()),
           "ordered path: trajectory is not finite")
     check(ate < ATE_BAR, f"ordered path: ATE {ate} >= {ATE_BAR} m")
     check(launches[5] > 0 and launches[5] == expected,
           f"ordered path: k=5 launches {launches[5]}, expected {expected}")
-    stray = stray_syncs(other, captures.ids)
-    check(not stray, "ordered path: a sync outside the loop ticks and the "
-          "graph captures: " + ", ".join(sorted({where(w) for w in stray})))
-    check(captures.captures == 2, f"ordered path: {captures.captures} graph "
-          "captures, expected 2")
+    stray = stray_syncs(syncs, captures.ids)
+    check(not stray, "ordered path: a sync outside the graph captures: "
+          + ", ".join(sorted({where(w) for w in stray})))
+    check(captures.captures == 3, f"ordered path: {captures.captures} graph "
+          "captures, expected 3")
     check(launches["symeig"] > 0, "ordered path: symeig never launched")
     check_graphs("ordered path", engine, card)
     return launches
@@ -2314,8 +2620,19 @@ def main():
         base, "loop path (default_config, loop closure on)", pts, msk, gt,
         card)
     elapsed("the loop path")
-    plain48 = run_repeatable(base, pts, msk, engine, card)
+    run_closing_tick(base, engine, lidar, card)
+    elapsed("the closing tick")
+    paths["closing-window latency"] = run_closing_latency(base, pts, msk,
+                                                          card)
+    elapsed("the closing-window latency")
+    plain_first = run_repeatable(base, pts, msk, engine, card)
     elapsed("repeatable")
+    b_pts = torch.from_numpy(b_scans).cuda()
+    b_msk = torch.from_numpy(b_valids).cuda()
+    for S, (n, _) in run_batch_sizes(base, b_pts, b_msk, b_gt, lidar,
+                                     card).items():
+        paths[f"batch S={S}"] = n
+    elapsed("the batch at S > 3")
     imu_cfg = base.replace(imu=ImuConfig(enabled=True))
     imu_pts, imu_msk = pts[:IMU_SCANS], msk[:IMU_SCANS]
     paths["imu"], imu_engine, with_imu = run_loop_path(
@@ -2333,22 +2650,31 @@ def main():
           f"{lidar['peak']} [{card}]", flush=True)
     elapsed("the IMU path")
 
-    b_pts = torch.from_numpy(b_scans).cuda()
-    b_msk = torch.from_numpy(b_valids).cuda()
     paths["batch"], batch_engine, batched = run_batch_path(
         base, b_pts, b_msk, b_gt, lidar, card)
     elapsed("the batch path")
     run_merge(base, batch_engine, b_gt, card)
     elapsed("the merge")
 
-    # M1 runs in this process while M2's two processes drive; each reads
+    # M1, then the eager S=3 batch, run in this process while M2's two
+    # processes drive (the host would wait on them otherwise); each reads
     # its own kNN counts (M2's ranks in their processes).
-    m2, paths["mesh M1"] = run_mesh2(
-        scans, valids, gt, engine, lidar, card,
-        background=lambda: run_mesh1(base, pts, msk, engine, plain48, card))
+    def behind_m2():
+        m1 = run_mesh1(base, pts, msk, engine, plain_first, card)
+        launches, eager_batch, summary = run_batch_path(
+            base, b_pts, b_msk, b_gt, lidar, card, eager=True,
+            beside="while M2's two processes drive")
+        del eager_batch
+        free_memory()
+        return m1, launches, summary
+
+    m2, (paths["mesh M1"], paths["batch S=3 eager"], eager_batched) = \
+        run_mesh2(scans, valids, gt, engine, lidar, card,
+                  background=behind_m2)
     for r, n in enumerate(m2):
         paths[f"mesh M2 rank {r}"] = n
-    elapsed("mesh M1 and M2")
+    compare_batches(batched, eager_batched, card)
+    elapsed("mesh M1, the eager batch and M2")
     for r, n in enumerate(run_mesh3(b_scans, b_valids, b_gt, card)):
         paths[f"mesh M3 rank {r}"] = n
     elapsed("mesh M3")
@@ -2375,9 +2701,16 @@ def main():
     rows = profile_stages.profile_engine(engine, scans[-1], valids[-1],
                                          len(scans) * 0.1, card, PROFILE_REPS)
     replays = [r for r in rows if "replay" in r["name"]]
-    check(len(replays) == 2 and all(r["device_ms"] > 0 and r["syncs"] == 0
+    # perception, mapping, the loop tick by three outcomes, the batch's
+    # three steps.
+    check(len(replays) == 8 and all(r["device_ms"] > 0 and r["syncs"] == 0
                                     for r in replays),
           "profile_stages: the graph replay rows")
+    outcomes = {r["name"].split(",")[0] for r in replays
+                if r["name"].startswith("loop_step")}
+    check(outcomes == {"loop_step no candidate", "loop_step verified",
+                       "loop_step closed"},
+          f"profile_stages: loop tick outcomes {sorted(outcomes)}")
     check(all(r["launches"] > 0 for r in rows if r not in replays),
           "profile_stages: a sub-stage launched no kernel")
     elapsed("profile_stages")

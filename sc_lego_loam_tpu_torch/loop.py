@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from . import mapping, posegraph
+from . import graphs, mapping, posegraph
 from .config import PipelineConfig
 from .mapping import KeyframeStore
 from .models import scan_context
@@ -167,20 +167,24 @@ def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
     pose-graph solution when a loop was accepted (correctPoses,
     mO.cpp:1642-1664).
 
-    The JAX package gates the verifications and the re-solve with
-    ``lax.cond`` on device scalars.  Here the two detectors' verdicts are
-    read on the host together (one read), and ``closed`` once more before
-    the re-solve: a tick without a candidate then costs the retrieval only,
-    and an unclosed tick returns the very tensors it was given.  An
-    accepted factor is merged with ``torch.where``, so a rejected one
-    leaves the bank bit-identical.
+    The verifications and the re-solve are gated on device flags by
+    ``graphs.cond``, the JAX package's ``lax.cond``
+    (``sc_lego_loam_tpu/loop.py:140-150``): an SC hit (``sc_idx >= 0``), a
+    radius hit that is not the SC one, and ``closed``.  Eagerly the two
+    detectors' verdicts are read on the host together (one read) and
+    ``closed`` once more, so a tick without a candidate costs the retrieval
+    only and an unclosed tick returns the very tensors it was given; in a
+    captured ``loop_step`` each gate is a CUDA-graph conditional node and
+    the tick reads nothing on the host.  An accepted factor is merged with
+    ``torch.where``, so a rejected one leaves the bank bit-identical.
 
     With a ``mesh`` the cloud and descriptor banks are this rank's blocks
     of banks sharded over 'kf': retrieval is ``retrieval.detect_sharded``,
     the clouds come by ``gather_rows`` and the re-solve shards the loop
     factors.  Every rank must take the same branch (the next collective
     would wait forever otherwise); the flags derive from replicated or
-    all-reduced values, and ``mesh.agree`` checks that they do."""
+    all-reduced values, and ``mesh.agree`` reads them, checked equal on
+    every rank (a mesh engine runs eagerly)."""
     cur = torch.clamp(kf.count - 1, min=0)
     dev = cur.device
 
@@ -192,22 +196,31 @@ def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
         sc_idx, _, sc_yaw = retrieval.detect_sharded(
             config, mesh, bank.desc, bank.count, cur_desc)
     rs_idx = detect_radius(config, kf, cur)
-    run_sc, run_rs = mesh_mod.agree(torch.stack(
-        [sc_idx >= 0, (rs_idx >= 0) & (rs_idx != sc_idx)]), mesh)
+    flags = torch.stack([sc_idx >= 0, (rs_idx >= 0) & (rs_idx != sc_idx)])
+    if mesh is not None:
+        run_sc, run_rs = mesh_mod.agree(flags, mesh)
+    elif graphs.host_reads():
+        run_sc, run_rs = flags.tolist()
+    else:
+        run_sc, run_rs = flags
+
+    def verify_into(loops, closed, idx, place, yaw):
+        new, ok = verify_and_add(config, kf, loops, cur, idx, place, yaw,
+                                 mesh)
+        return new, closed | ok
 
     closed = torch.zeros((), dtype=torch.bool, device=dev)
-    if run_sc:
-        # The SC yaw seeds the verification ICP.
-        loops, ok = verify_and_add(config, kf, loops, cur,
-                                   *sc_hypothesis(kf, sc_idx), sc_yaw, mesh)
-        closed = closed | ok
-    if run_rs:
-        loops, ok = verify_and_add(config, kf, loops, cur,
-                                   *rs_hypothesis(kf, cur, rs_idx), None,
-                                   mesh)
-        closed = closed | ok
+    # The SC yaw seeds the verification ICP.
+    loops, closed = graphs.cond(run_sc, lambda: verify_into(
+        loops, closed, *sc_hypothesis(kf, sc_idx), sc_yaw), (loops, closed))
+    loops, closed = graphs.cond(run_rs, lambda: verify_into(
+        loops, closed, *rs_hypothesis(kf, cur, rs_idx), None),
+        (loops, closed))
 
-    if (run_sc or run_rs) and mesh_mod.agree(closed, mesh):
-        kf = kf._replace(poses6=posegraph.solve(
-            config, kf.poses6, kf.count, kf.odom_z, loops, mesh=mesh))
-    return kf, loops, closed
+    if isinstance(run_sc, bool):              # host flags: read closed
+        resolve = (run_sc or run_rs) and mesh_mod.agree(closed, mesh)
+    else:
+        resolve = closed
+    poses6 = graphs.cond(resolve, lambda: posegraph.solve(
+        config, kf.poses6, kf.count, kf.odom_z, loops, mesh=mesh), kf.poses6)
+    return kf._replace(poses6=poses6), loops, closed

@@ -147,6 +147,13 @@ def load_library(path: str):
     lib.graph_node_count.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
     lib.graph_node_count.restype = ctypes.c_int
+    lib.graph_stream_create.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    lib.graph_stream_create.restype = ctypes.c_int
+    lib.graph_cond_begin.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.graph_cond_begin.restype = ctypes.c_int
+    lib.graph_cond_end.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    lib.graph_cond_end.restype = ctypes.c_int
     configs = {}
     for k in KS:
         out = (ctypes.c_int * len(KernelConfig._fields))()

@@ -12,11 +12,12 @@ What cannot run under ``vmap`` runs outside it, once for the batch:
 - the keyframe and descriptor bank writes: the vmapped step returns the new
   rows and their slots, and the engine writes the (S, K, ...) banks in place
   with one ``index_put_`` per field at ``[arange(S), slot]``;
-- the host reads of a loop tick: the S x 2 detector verdicts in one read,
-  ``closed.any()`` once, and one ``done.all()`` per GN iteration of the
-  batched re-solve (``posegraph.solve_batched``); a sequence without a
-  candidate is frozen with ``torch.where``, as the JAX package's
-  ``lax.cond`` is under ``jax.vmap``.
+- the gates of a loop tick (``graphs.cond``): any SC hit, any radius hit,
+  any closed sequence, and each GN iteration of the batched re-solve
+  (``posegraph.solve_batched``); a sequence without a candidate is frozen
+  with ``torch.where``, as the JAX package's ``lax.cond`` is under
+  ``jax.vmap``.  On the card the three batched steps are CUDA graphs and
+  the gates conditional nodes; eagerly they are host reads.
 
 Cross-sequence merging: ``find_cross_loops`` scores every keyframe of
 sequence A against the whole Scan Context bank of B, ``verify_cross_loops``
@@ -29,15 +30,17 @@ and cross-sequence loop factors as one multi-chain pose graph.
 from __future__ import annotations
 
 import math
+import os
+from typing import NamedTuple
 
 import torch
 from torch.func import vmap
 
-from .. import loop, mapping, odometry, posegraph
+from .. import graphs, loop, mapping, odometry, posegraph
 from ..config import PipelineConfig
 from ..models import scan_context
 from ..ops import icp
-from ..pipeline import _odo_perception
+from ..pipeline import _odo_perception, stage
 from . import mesh as mesh_mod
 from ..utils import se3
 from ..utils.profiling import StageTimer
@@ -86,6 +89,26 @@ def _descriptor_rows(cfg: PipelineConfig, bank, points, mask):
     return slot[0], room, desc_row, key_row
 
 
+class BatchState(NamedTuple):
+    """A ``BatchEngine``'s device state, every leaf S-leading."""
+
+    odo: odometry.OdometryState
+    map: mapping.MapState
+    bank: scan_context.DescriptorBank
+    loops: posegraph.LoopFactors
+    last_kf_odom: torch.Tensor   # (S,4,4)
+    loops_closed: torch.Tensor   # (S,) int32
+    traj: torch.Tensor           # (S, max_scans, 4, 4) fused poses
+
+
+def _state_field(name: str):
+    """A property over one field of ``BatchEngine.s``; the setter replaces
+    it (``utils/convert.load_batch_state`` sets them)."""
+    return property(lambda self: getattr(self.s, name),
+                    lambda self, v: setattr(self, "s",
+                                            self.s._replace(**{name: v})))
+
+
 class BatchEngine:
     """Runs S sequences in lockstep, one vmapped device step per scan index
     (pure data parallelism over the sequences).  The state is stacked on a
@@ -96,6 +119,20 @@ class BatchEngine:
     batch is lidar-only: the JAX ``BatchEngine`` carries no IMU buffer
     either (its ``_pre_deskew`` fails there).
 
+    On the card the three batched steps (perception; mapping with the
+    descriptor rows and the in-place bank writes; the loop tick) run as
+    CUDA graph replays, one dispatch a step as the JAX ``BatchEngine``'s
+    jitted steps (``graphs.StepGraph``; warm-up, capture and the shared
+    pool as in ``pipeline.SlamEngine``).  The scans, ``t`` and the scan
+    index are static inputs; every step ends by writing the fused poses
+    (this tick's correction) into the trajectory at the device scan index,
+    the JAX package's ``_record``.  The loop tick's gates (any SC hit, any
+    radius hit, any closed sequence, each GN iteration of the batched
+    re-solve) are conditional nodes (``graphs.cond``), so no step reads a
+    device value on the host.  ``eager=True`` keeps the op-by-op path,
+    whose gates read the flags on the host; the CPU and a mesh are always
+    eager, and ``eager=False`` there raises.
+
     ``mesh`` (a ``DeviceMesh`` with a 'seq' axis): the sequences are split
     over the 'seq' group in contiguous blocks, and each rank holds and
     steps its ``n_local = n_seq / n`` sequences end to end, under the same
@@ -105,8 +142,16 @@ class BatchEngine:
     ``sequence_banks`` brings one sequence's banks to every rank for the
     cross-sequence functions."""
 
+    odo = _state_field("odo")
+    map = _state_field("map")
+    bank = _state_field("bank")
+    loops = _state_field("loops")
+    last_kf_odom = _state_field("last_kf_odom")
+    loops_closed = _state_field("loops_closed")
+    traj = _state_field("traj")
+
     def __init__(self, config: PipelineConfig, n_seq: int, mesh=None,
-                 device="cuda"):
+                 device="cuda", *, eager: bool | None = None):
         self.mesh = mesh
         self.seq_shard = None if mesh is None else \
             mesh_mod.axis_shard(mesh, "seq")
@@ -123,22 +168,31 @@ class BatchEngine:
             raise RuntimeError(
                 "BatchEngine(device='cuda'): no CUDA device; pass "
                 "device='cpu' to run the plain versions")
+        graphable = self.device.type == "cuda" and mesh is None
+        if eager is None:
+            eager = not graphable
+        elif not eager and not graphable:
+            raise ValueError(
+                "BatchEngine(eager=False): CUDA graphs need a CUDA device "
+                "and no mesh")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         self.config = config
         self.n_seq = n_seq
         self.seq_lo, n = (0, n_seq) if self.seq_shard is None else \
             self.seq_shard.block(n_seq)
         self.n_local = n
         dev = self.device
-        self.odo = _stack(odometry.init_state(config, dev), n)
-        self.map = _stack(mapping.init_state(config, dev), n)
-        self.bank = _stack(scan_context.init_bank(config, dev), n)
-        self.loops = _stack(posegraph.init_loops(config, dev), n)
         eye = torch.eye(4, device=dev)
-        self.last_kf_odom = _stack(eye, n)
-        self.loops_closed = torch.zeros(n, dtype=torch.int32, device=dev)
-        self.traj = _stack(_stack(eye, config.cap.max_scans), n)
+        self.s = BatchState(
+            odo=_stack(odometry.init_state(config, dev), n),
+            map=_stack(mapping.init_state(config, dev), n),
+            bank=_stack(scan_context.init_bank(config, dev), n),
+            loops=_stack(posegraph.init_loops(config, dev), n),
+            last_kf_odom=_stack(eye, n),
+            loops_closed=torch.zeros(n, dtype=torch.int32, device=dev),
+            traj=_stack(_stack(eye, config.cap.max_scans), n))
         self._scan_i = 0
         self._map_ticks = 0
         self.loop_ticks = 0
@@ -163,116 +217,201 @@ class BatchEngine:
         self._verify_rs = vmap(
             lambda kf, lo, c, i: loop.verify_and_add(
                 cfg, kf, lo, c, *loop.rs_hypothesis(kf, c, i), None))
+        self.graphs = None
+        self._bufs = None          # static inputs: points, masks, t, index
+        if not eager:
+            self.use_graphs(graphs.CudaCapture(self.device))
 
-    def process_scans(self, points, masks, t: float):
-        """points: (S,N,3), masks: (S,N) (numpy or tensors).  Returns the
-        fused poses (S,4,4) as a device tensor (no host sync outside a loop
-        tick; fetch the trajectories at the end with
-        ``trajectory_array``).  With a mesh: all S sequences' scans in,
-        this rank's ``n_local`` poses out."""
-        cfg = self.config
+    def use_graphs(self, backend):
+        """Run the three batched steps through ``graphs.StepGraph``s on
+        ``backend`` (``graphs.CudaCapture``; the CPU tests hand in
+        ``graphs.EagerStandIn``)."""
+        self.graphs = (
+            graphs.StepGraph(self._perceive, backend, "batch_perception"),
+            graphs.StepGraph(self._map_step, backend, "batch_mapping"),
+            graphs.StepGraph(self._loop_step, backend, "batch_loop",
+                             warm_copy=graphs.small_copy))
+
+    def _stage(self, points, masks, t: float):
+        """The scans, ``t`` and the scan index on the device: fresh tensors
+        eagerly, the static buffers with graphs (``t`` and the index by
+        fills)."""
         if self.seq_shard is not None:
             points = points[self.seq_lo:self.seq_lo + self.n_local]
             masks = masks[self.seq_lo:self.seq_lo + self.n_local]
-        points = torch.as_tensor(points, dtype=torch.float32,
-                                 device=self.device)
-        masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
+        dev = self.device
+        if self.graphs is None:
+            return (torch.as_tensor(points, dtype=torch.float32, device=dev),
+                    torch.as_tensor(masks, dtype=torch.bool, device=dev),
+                    torch.full((), t, dtype=torch.float32, device=dev),
+                    torch.full((), self._scan_i, dtype=torch.int64,
+                               device=dev))
+        if self._bufs is None:
+            self._bufs = (
+                torch.empty(tuple(points.shape), dtype=torch.float32,
+                            device=dev),
+                torch.empty(tuple(masks.shape), dtype=torch.bool, device=dev),
+                torch.empty((), dtype=torch.float32, device=dev),
+                torch.empty((), dtype=torch.int64, device=dev))
+        pts, msk, t_buf, i_buf = self._bufs
+        stage((pts, msk), (points, masks), dev)
+        t_buf.fill_(t)
+        i_buf.fill_(self._scan_i)
+        return self._bufs
+
+    def _run(self, step: int, fn, *args):
+        """Step ``step`` (0 perception, 1 mapping, 2 loop) on the state:
+        eagerly or a replay of its graph."""
+        if self.graphs is None:
+            out = fn(self.s, *args)
+        else:
+            out = self.graphs[step](self.s, *args)
+        self.s = out[0]
+        return out[1:]
+
+    def process_scans(self, points, masks, t: float):
+        """points: (S,N,3), masks: (S,N) (numpy or tensors).  Returns the
+        fused poses (S,4,4) as a device tensor (no host sync; fetch the
+        trajectories at the end with ``trajectory_array``).  With a mesh:
+        all S sequences' scans in, this rank's ``n_local`` poses out."""
+        cfg = self.config
+        points, masks, t_dev, i = self._stage(points, masks, t)
         with self.timer.stage("perception"):
-            self.odo, odom_poses, out_pts, out_mask = self._perception(
-                points, masks, self.odo)
+            out_pts, out_mask, fused = self._run(0, self._perceive, points,
+                                                 masks, i)
 
         if t - self.last_map_time >= cfg.mapping.process_interval:
             self.last_map_time = t
             with self.timer.stage("mapping"):
-                self._mapping_tick(odom_poses, out_pts, out_mask, points,
-                                   masks, t)
+                (fused,) = self._run(1, self._map_step, out_pts, out_mask,
+                                     points, masks, t_dev, i)
             self._map_ticks += 1
             # The loop cadence counts mapping ticks, as in the JAX package.
             if cfg.loop.enabled and \
                     self._map_ticks % cfg.loop.check_every_ticks == 0:
                 with self.timer.stage("loop"):
-                    self._loop_tick()
+                    fused = self._loop_tick(i)
                 self.loop_ticks += 1
-        # The fused pose with this tick's correction.
-        fused = self.map.correction @ odom_poses
-        self.traj[:, min(self._scan_i, cfg.cap.max_scans - 1)] = fused
         self._scan_i += 1
+        # A graph's output is rewritten by its next replay.
+        return fused if self.graphs is None else fused.clone()
+
+    def _record(self, st: BatchState, i: torch.Tensor) -> torch.Tensor:
+        """The fused poses with this tick's correction (odometry pose =
+        ``st.odo.pose``) written into the trajectory at the device scan
+        index ``i`` (the JAX package's ``_record``); every step ends so."""
+        fused = st.map.correction @ st.odo.pose
+        slot = torch.clamp(i, max=self.config.cap.max_scans - 1).reshape(1)
+        st.traj.index_copy_(1, slot, fused[:, None])
         return fused
 
-    def _mapping_tick(self, odom_poses, out_pts, out_mask, points, masks,
-                      t: float):
-        odo = self.odo
-        t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
+    def _perceive(self, st: BatchState, points, masks, i):
+        odo, _, out_pts, out_mask = self._perception(points, masks, st.odo)
+        st = st._replace(odo=odo)
+        return st, out_pts, out_mask, self._record(st, i)
+
+    def _map_step(self, st: BatchState, out_pts, out_mask, points, masks,
+                  t, i):
+        odo = st.odo
         slot, rows, inserted, pose, correction, last_kf_pose, lko = \
-            self._mapping(self.map, self.last_kf_odom, odom_poses,
+            self._mapping(st.map, st.last_kf_odom, odo.pose,
                           odo.corner_last.xyz, odo.corner_last.mask,
                           odo.surf_last.xyz, odo.surf_last.mask, out_pts,
-                          out_mask, t_dev)
-        kf = self.map.kf
+                          out_mask, t)
+        kf = st.map.kf
         for name, row in rows.items():
             getattr(kf, name).index_put_((self._seq, slot), row)
         kf = kf._replace(count=kf.count + inserted.to(torch.int32))
-        self.map = mapping.MapState(kf=kf, correction=correction, pose=pose,
-                                    last_kf_pose=last_kf_pose)
-        self.last_kf_odom = lko
 
         # The descriptor goes in under ``inserted`` (the JAX BatchEngine's
         # rule; the single-sequence engine appends under ``should``).
-        slot, room, desc_row, key_row = self._descriptors(self.bank, points,
+        slot, room, desc_row, key_row = self._descriptors(st.bank, points,
                                                           masks)
-        bank = self.bank
+        bank = st.bank
         bank.desc.index_put_((self._seq, slot), desc_row)
         bank.ringkey.index_put_((self._seq, slot), key_row)
-        self.bank = bank._replace(
-            count=bank.count + (inserted & room).to(torch.int32))
+        st = st._replace(
+            map=mapping.MapState(kf=kf, correction=correction, pose=pose,
+                                 last_kf_pose=last_kf_pose),
+            last_kf_odom=lko,
+            bank=bank._replace(
+                count=bank.count + (inserted & room).to(torch.int32)))
+        return st, self._record(st, i)
 
-    def _loop_tick(self):
+    def _loop_tick(self, i: torch.Tensor | None = None):
+        """Every sequence's loop-closure tick on the state (at the staged
+        scan index, or ``i``); returns the fused poses."""
+        if i is None:
+            i = torch.full((), self._scan_i, dtype=torch.int64,
+                           device=self.device)
+        (fused,) = self._run(2, self._loop_step, i)
+        return fused
+
+    def _loop_step(self, st: BatchState, i):
         """Every sequence's loop-closure tick (the JAX package's
         ``_batch_loop``: ``loop.device_tick`` per sequence and the
-        correction bookkeeping of ``pipeline.loop_step``).  Host reads: the
-        S x 2 detector verdicts together, ``closed.any()``, and one per GN
-        iteration of the batched re-solve."""
+        correction bookkeeping of ``pipeline.loop_step``).  Gates
+        (``graphs.cond``): any SC hit, any radius hit, any closed
+        sequence; eagerly the S x 2 verdicts are read together, then
+        ``closed.any()``, then one read per GN iteration of the batched
+        re-solve.  A sequence without a candidate is frozen with
+        ``torch.where``, as the JAX package's ``lax.cond`` is under
+        ``jax.vmap``."""
         cfg = self.config
-        st = self.map
-        kf = st.kf
+        kf = st.map.kf
         cur = torch.clamp(kf.count - 1, min=0)
-        sc_idx, _, sc_yaw = self._detect_sc(self.bank, cur)
+        sc_idx, _, sc_yaw = self._detect_sc(st.bank, cur)
         rs_idx = self._detect_rs(kf, cur)
         run_sc = sc_idx >= 0
         run_rs = (rs_idx >= 0) & (rs_idx != sc_idx)
-        any_sc, any_rs = torch.stack([run_sc, run_rs]).any(-1).tolist()
+        flags = torch.stack([run_sc, run_rs]).any(-1)
+        any_sc, any_rs = flags.tolist() if graphs.host_reads() else flags
 
-        loops = self.loops
+        def verify_into(verify, run, loops, closed, *args):
+            new, ok = verify(kf, loops, cur, *args)
+            return _select(run, new, loops), closed | (ok & run)
+
+        loops = st.loops
         closed = torch.zeros(self.n_local, dtype=torch.bool,
                              device=self.device)
-        if any_sc:
-            new, ok = self._verify_sc(kf, loops, cur, sc_idx, sc_yaw)
-            loops = _select(run_sc, new, loops)
-            closed = closed | (ok & run_sc)
-        if any_rs:
-            new, ok = self._verify_rs(kf, loops, cur, rs_idx)
-            loops = _select(run_rs, new, loops)
-            closed = closed | (ok & run_rs)
-        self.loops = loops
-        if not ((any_sc or any_rs) and bool(closed.any())):
-            return
-        kf = kf._replace(poses6=posegraph.solve_batched(
-            cfg, kf.poses6, kf.count, kf.odom_z, loops, closed))
-        new_pose = se3.pose6_to_mat(kf.poses6[self._seq, cur])
-        c = closed[:, None, None]
-        self.map = mapping.MapState(
-            kf=kf,
-            correction=torch.where(
-                c, new_pose @ se3.mat_inv(self.last_kf_odom), st.correction),
-            pose=torch.where(c, new_pose, st.pose),
-            last_kf_pose=torch.where(c, new_pose, st.last_kf_pose))
-        self.loops_closed = self.loops_closed + closed.to(torch.int32)
+        loops, closed = graphs.cond(any_sc, lambda: verify_into(
+            self._verify_sc, run_sc, loops, closed, sc_idx, sc_yaw),
+            (loops, closed))
+        loops, closed = graphs.cond(any_rs, lambda: verify_into(
+            self._verify_rs, run_rs, loops, closed, rs_idx), (loops, closed))
+
+        resolve = (any_sc or any_rs) and bool(closed.any()) \
+            if isinstance(any_sc, bool) else closed.any()
+        m = st.map
+
+        def resolved():
+            poses6 = posegraph.solve_batched(cfg, kf.poses6, kf.count,
+                                             kf.odom_z, loops, closed)
+            new_pose = se3.pose6_to_mat(poses6[self._seq, cur])
+            c = closed[:, None, None]
+            return (poses6,
+                    torch.where(c, new_pose @ se3.mat_inv(st.last_kf_odom),
+                                m.correction),
+                    torch.where(c, new_pose, m.pose),
+                    torch.where(c, new_pose, m.last_kf_pose),
+                    st.loops_closed + closed.to(torch.int32))
+
+        poses6, correction, pose, last_kf_pose, loops_closed = graphs.cond(
+            resolve, resolved, (kf.poses6, m.correction, m.pose,
+                                m.last_kf_pose, st.loops_closed))
+        st = st._replace(
+            map=mapping.MapState(kf=kf._replace(poses6=poses6),
+                                 correction=correction, pose=pose,
+                                 last_kf_pose=last_kf_pose),
+            loops=loops, loops_closed=loops_closed)
+        return st, self._record(st, i)
 
     def trajectory_array(self, seq: int | None = None):
         """(S,N,4,4) fused trajectories so far (one fetch), or one
         sequence's (N,4,4); with a mesh, every sequence's, gathered over
         the 'seq' group (every rank of it must call)."""
         n = min(self._scan_i, self.config.cap.max_scans)
+        graphs.flush_counts()
         traj = self.traj[:, :n].contiguous()
         if self.seq_shard is not None:
             traj = mesh_mod.exchange(traj, self.seq_shard).reshape(

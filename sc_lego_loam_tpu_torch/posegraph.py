@@ -25,8 +25,9 @@ Phi_k = A_k ... A_0 of 6x6 blocks, computed by a log-depth doubling scan.
 Multi-chain graphs (``parallel.batch.merge_solve``): ``node_mask`` and
 ``free_edges``, as in the JAX package.  ``gn_step`` is one GN iteration;
 ``solve`` drives it for one graph and ``solve_batched`` for a batch of
-graphs under ``torch.func.vmap``, with one host read per iteration either
-way.
+graphs under ``torch.func.vmap``, each iteration after the first gated on
+convergence by ``graphs.cond`` (a host read eagerly, a CUDA-graph
+conditional node in a captured step).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from . import graphs
 from .config import PipelineConfig
 from .parallel import mesh as mesh_mod
 from .utils import se3
@@ -134,6 +136,19 @@ def _inv(A):
     ``torch.linalg.inv`` (a singular block gives inf/nan, which the
     finite-guard on the update turns into a zero step)."""
     return torch.linalg.inv_ex(A).inverse
+
+
+def _spd_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """M^-1 b for a symmetric positive definite M: Cholesky factor and two
+    triangular solves.  (cuSOLVER's LU and Cholesky solves, getrs / potrs,
+    and its LU of a large matrix allocate stream-ordered memory, which a
+    CUDA-graph conditional body may not hold; the factor and cuBLAS's
+    triangular solves do not.  The JAX package's ``jnp.linalg.solve`` is
+    an LU: the same solution to rounding.)  A failed factor gives a
+    non-finite solution, as a singular LU does."""
+    L = torch.linalg.cholesky_ex(M).L
+    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
 
 
 def gn_step(config: PipelineConfig, X: torch.Tensor, odom_z: torch.Tensor,
@@ -265,7 +280,7 @@ def gn_step(config: PipelineConfig, X: torch.Tensor, odom_z: torch.Tensor,
             aug, torch.cat([rhs1, torch.zeros(6 * F, **f32)])).result
         v, wf = sol[:6 * L], sol[6 * L:]
     else:
-        v = torch.linalg.solve_ex(M11, rhs1).result
+        v = _spd_solve(M11, rhs1)
 
     # (G^T v)_k = P_k^T * suffix-sum_k( scatter(Q^T v at li/lj) ).  An
     # accumulating index_put sums the factors of one node in index order
@@ -310,12 +325,12 @@ def solve(config: PipelineConfig, poses6: torch.Tensor, count: torch.Tensor,
     ``free_edges`` (F,) lists chain starts (see ``gn_step``): the
     multi-chain graph of ``parallel.batch.merge_solve``.
 
-    Iterations stop at convergence by ONE host read of a device flag per
-    iteration (the JAX package gates its unrolled iterations with
-    ``lax.cond``: same numbers).  A re-solve runs only on a loop tick that
+    Iterations stop at convergence (``_iterate``): eagerly by one host
+    read of a device flag per iteration, in a captured step by one
+    conditional node per iteration, as the JAX package gates its unrolled
+    iterations with ``lax.cond``.  A re-solve runs only on a loop tick that
     accepted a factor, and an iteration over a full bank is hundreds of
-    launches, so computing all ``max_gn_iterations`` to spare the reads
-    would cost far more than they do.
+    launches, so the gate spares them once the graph has converged.
 
     ``mesh`` (a ``DeviceMesh`` with a 'kf' axis, or its ``mesh.Shard``):
     every rank solves the whole graph, and the first rank's result is
@@ -341,9 +356,9 @@ def solve_batched(config: PipelineConfig, poses6: torch.Tensor,
     argument; ``active`` (S,) bool selects the graphs to re-solve).  Each
     iteration is ``gn_step`` under ``torch.func.vmap``; a graph that has
     converged, or is not active, is frozen with ``torch.where`` (what the
-    JAX package's ``lax.cond`` gate becomes under ``jax.vmap``), and the
-    loop ends on ONE host read of ``done.all()`` per iteration.  An
-    inactive graph comes back bit-identical."""
+    JAX package's ``lax.cond`` gate becomes under ``jax.vmap``), and each
+    iteration after the first is gated on ``~done.all()`` as in ``solve``.
+    An inactive graph comes back bit-identical."""
     K = poses6.shape[1]
     node_ok = torch.arange(K, device=poses6.device)[None, :] < count[:, None]
     step = vmap(lambda X, z, lo, ok: gn_step(config, X, z, lo, ok))
@@ -356,12 +371,22 @@ def solve_batched(config: PipelineConfig, poses6: torch.Tensor,
 def _iterate(config: PipelineConfig, X: torch.Tensor, step,
              done: torch.Tensor) -> torch.Tensor:
     """GN iterations ``(converged, X) = step(X)`` until every graph is
-    done, on ONE host read per iteration; a graph already done (``done``
-    () or (S,)) is frozen with ``torch.where``."""
-    for _ in range(config.posegraph.max_gn_iterations):
+    done; a graph already done (``done`` () or (S,)) is frozen with
+    ``torch.where``.  Every iteration after the first is gated on
+    ``~done.all()`` by ``graphs.cond``, the JAX package's ``lax.cond``-gated
+    unrolled iterations (``sc_lego_loam_tpu/posegraph.py:323-332``): one
+    host read an iteration eagerly (the early exit), one conditional node
+    an iteration in a captured step, the same numbers either way."""
+
+    def iteration(X, done):
         converged, X_new = step(X)
-        X = torch.where(done[..., None, None, None], X, X_new)
-        done = done | converged
-        if bool(done.all()):            # the deliberate host read
+        return (torch.where(done[..., None, None, None], X, X_new),
+                done | converged)
+
+    X, done = iteration(X, done)
+    for _ in range(config.posegraph.max_gn_iterations - 1):
+        go = graphs.gate(~done.all())
+        if go is False:                 # read on the host: converged
             break
+        X, done = graphs.cond(go, lambda: iteration(X, done), (X, done))
     return X

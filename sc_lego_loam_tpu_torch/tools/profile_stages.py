@@ -1,5 +1,5 @@
-"""Per-sub-stage times of ``perception_step`` and ``mapping_step`` on a
-real engine state (the counterpart of the JAX package's
+"""Per-sub-stage times of ``perception_step``, ``mapping_step`` and
+``loop_step`` on a real engine state (the counterpart of the JAX package's
 ``tools/profile_stages.py``): the table ``PERF.md``'s budget is built from.
 
     python -m sc_lego_loam_tpu_torch.tools.profile_stages [--device cuda]
@@ -20,10 +20,17 @@ sub-stage runs on that state, on scan 60, and prints:
   session every later launch is slower);
 - ``host_syncs``: the syncs of one call (``torch.cuda.set_sync_debug_mode``).
 
-On the card two more rows time one ``perception_step`` replay and one
-``mapping_step`` replay of CUDA graphs (``graphs.StepGraph``, what
-``SlamEngine`` runs) captured on copies of the engine's state, beside the
-eager sub-stages and whole steps.
+On the card more rows time replays of CUDA graphs (``graphs.StepGraph``,
+what ``SlamEngine`` and ``BatchEngine`` run) captured on copies of the
+engine's state, beside the eager sub-stages and whole steps: one
+``perception_step`` and one ``mapping_step`` replay; a ``loop_step``
+replay by outcome (its gates conditional nodes): with both detectors shut
+(no candidate), and with the radius search opened to every keyframe
+(``rs_time_gap`` 0, ``rs_search_radius`` 1000 m: the current keyframe's
+own neighbourhood is a candidate) under a fitness gate nothing passes (a
+verification, no re-solve) and under the configured gates (a re-solve);
+each row names the outcome its warm-up had.  Then the three batched steps of a
+``BatchEngine`` of 3 sequences, each the engine's state.
 
 The submap occupancy prints last.  ``--device`` defaults to ``cuda`` and
 fails without a card; on the CPU only ``ms_synchronized`` and ``host_ms``
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import dataclasses
 import os
 import time
 import warnings
@@ -43,6 +51,7 @@ import torch
 from .. import frontend, graphs, mapping, odometry, pipeline
 from ..config import synthetic_config
 from ..models import scan_context
+from ..ops import cuda_knn
 from ..pipeline import SlamEngine
 from ..runner import mulran_engine_config
 from . import bench
@@ -245,8 +254,87 @@ def replay_parts(engine: SlamEngine, pts, msk, t, reps=REPS):
         perceive()
         map_tick()
     half = max(1, reps // 2)
-    return [("perception_step (CUDA graph replay)", perceive, reps),
-            ("mapping_step (CUDA graph replay)", map_tick, half)]
+    parts = [("perception_step (CUDA graph replay)", perceive, reps),
+             ("mapping_step (CUDA graph replay)", map_tick, half)]
+    if cfg.loop.enabled:
+        parts += loop_replay_parts(engine, backend, half)
+    return parts + batch_replay_parts(engine, pts, msk, t, half)
+
+
+def _small_copy(state, limit=4 << 20):
+    """``state`` with its leaves under ``limit`` bytes copied and the banks
+    shared (a loop tick only reads them)."""
+    return graphs.unflatten(state, iter(
+        x.clone() if x.numel() * x.element_size() < limit else x
+        for x in graphs.flatten(state)))
+
+
+def loop_replay_parts(engine: SlamEngine, backend, reps):
+    """A ``loop_step`` graph replay by outcome (see the module docstring),
+    each graph over its own copy of the engine's small state leaves."""
+    cfg = engine.config
+    opened = dataclasses.replace(cfg.loop, rs_time_gap=0.0,
+                                 rs_search_radius=1e3)
+    configs = [("both detectors shut", cfg.replace(
+                    sc=dataclasses.replace(cfg.sc, dist_threshold=-1.0),
+                    loop=dataclasses.replace(cfg.loop,
+                                             rs_search_radius=0.0))),
+               ("radius search opened, fitness gate shut",
+                cfg.replace(loop=dataclasses.replace(
+                    opened, fitness_threshold=-1.0))),
+               ("radius search opened", cfg.replace(loop=opened))]
+    parts = []
+    for name, c in configs:
+        g = graphs.StepGraph(lambda m, c=c: (pipeline.loop_step(c, m),),
+                             backend, "loop_step")
+        before = int(engine.m.loops_closed)
+        k1 = cuda_knn.launches[1]
+        (warm,) = g(_small_copy(engine.m))
+        graphs.flush_counts()
+        outcome = ("closed" if int(warm.loops_closed) > before else
+                   "verified" if cuda_knn.launches[1] > k1 else
+                   "no candidate")
+        (state,) = g(_small_copy(engine.m))
+        parts.append((f"loop_step {outcome}, {name} (CUDA graph replay)",
+                      lambda g=g, state=state: g(state), reps))
+    return parts
+
+
+def batch_replay_parts(engine: SlamEngine, pts, msk, t, reps, S=3):
+    """Replays of ``BatchEngine``'s three graphs (S sequences, each the
+    engine's state; the banks copied S times, on the card) on the scan
+    ``pts`` given to every sequence."""
+    from ..parallel import batch as pbatch
+
+    b = pbatch.BatchEngine(engine.config, n_seq=S, device=engine.device)
+    b.s = b.s._replace(
+        odo=pbatch._stack(engine.p.odo, S), map=pbatch._stack(engine.map, S),
+        bank=pbatch._stack(engine.m.bank, S),
+        loops=pbatch._stack(engine.m.loops, S),
+        last_kf_odom=pbatch._stack(engine.m.last_kf_odom, S))
+    P, M, T, I = b._stage(torch.stack([pts] * S), torch.stack([msk] * S),
+                          float(t))
+    out = {}
+
+    def perceive():
+        out["p"] = b._run(0, b._perceive, P, M, I)
+
+    def map_tick():
+        b._run(1, b._map_step, out["p"][0], out["p"][1], P, M, T, I)
+
+    def loop_tick():
+        b._run(2, b._loop_step, I)
+
+    for _ in range(2):              # warm-up, then capture (+ one replay)
+        perceive()
+        map_tick()
+        loop_tick()
+    return [(f"batch perception, {S} sequences (CUDA graph replay)",
+             perceive, reps),
+            (f"batch mapping tick, {S} sequences (CUDA graph replay)",
+             map_tick, reps),
+            (f"batch loop tick, {S} sequences (CUDA graph replay)",
+             loop_tick, reps)]
 
 
 def _num(x, fmt):

@@ -1,6 +1,7 @@
 """The step-graph runner (``sc_lego_loam_tpu_torch/graphs.py``) on the CPU:
 its bookkeeping, with ``graphs.EagerStandIn`` in place of CUDA graph
-capture and replay (a "replay" runs the step on the static buffers).
+capture and replay (a "replay" runs the step on the static buffers, every
+loop-tick gate in "select" mode).
 
 The drive is tests/torch_mesh_ranks.engine_cfg's 12 straight scans, which
 close a loop at scan 10.  A runner-backed engine must equal the eager
@@ -114,10 +115,11 @@ def test_runner_drive_is_bit_equal(runs):
     """Trajectories, keyframe poses, the loop bank and every other leaf
     of the state: the runner-backed engine equals the eager one, and its
     steps did run as replays (11 perception, 3 mapping: the first call of
-    each is the eager warm-up)."""
+    each is the warm-up; all 4 loop ticks: the first warms up on copies,
+    its gates in "select" mode, and captures at once)."""
     eager, runner = runs["eager"], runs["runner"]
     assert int(eager["ck.loops_closed"]) >= 1
-    assert runs["replays"] == [ENGINE_SCANS - 1, 3]
+    assert runs["replays"] == [ENGINE_SCANS - 1, 3, 4]
     _assert_same(runner, eager)
 
 

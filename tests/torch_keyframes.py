@@ -1,14 +1,17 @@
 """Hand-made keyframe stores for the batch and merge tests of the port
-(tests/test_torch_batch_loop.py, tests/test_torch_merge.py): keyframe
+(tests/test_torch_batch_loop.py, tests/test_torch_merge.py,
+tests/test_torch_loop_graph.py, tests/test_torch_batch_graph.py): keyframe
 clouds cast from the synthetic world at true poses, stored at estimated
 poses, with their Scan Context descriptors, as numpy dicts in the field
 layout of ``mapping.KeyframeStore`` / ``scan_context.DescriptorBank``
 (either package's)."""
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from sc_lego_loam_tpu.models import scan_context as jsc
 from sc_lego_loam_tpu.utils import se3 as jse3, synthetic
@@ -28,6 +31,18 @@ def fewer_iterations(cfg):
                                  icp_max_iterations=ICP_ITERATIONS),
         posegraph=dataclasses.replace(cfg.posegraph,
                                       max_gn_iterations=GN_ITERATIONS))
+
+
+def short_loop(cfg):
+    """Fewer ICP and GN iterations than ``fewer_iterations``' and
+    half the ICP's pads (the CPU's brute-force kNN over query x target
+    pads is what these tests spend their time on); the closing state still
+    closes, its re-solve converged before the cap."""
+    return cfg.replace(
+        cap=dataclasses.replace(cfg.cap, icp_query_pad=1024,
+                                history_pad=4096),
+        loop=dataclasses.replace(cfg.loop, icp_max_iterations=4),
+        posegraph=dataclasses.replace(cfg.posegraph, max_gn_iterations=5))
 
 
 def loop_cfg(base):
@@ -88,3 +103,24 @@ def sequence(cfg, world, gt, est, times, rng):
             jnp.asarray(pts), jnp.asarray(valid), cfg.sc))
     bank = dict(desc=desc, ringkey=desc.mean(-1), count=np.int32(n))
     return kf, bank
+
+
+READS = ("__bool__", "item", "tolist", "cpu", "numpy", "__int__",
+         "__float__", "__index__")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Every way of reading a tensor's value on the host raises."""
+    saved = {name: getattr(torch.Tensor, name) for name in READS}
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a host read inside the gated tick")
+
+    for name in READS:
+        setattr(torch.Tensor, name, refuse)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
