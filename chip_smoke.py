@@ -110,11 +110,17 @@ default on the card; ``eager=True`` is the op-by-op path), and the
 degeneracy guard's ``eigh`` and the ICP fit's ``svd`` are the hand-written
 ``csrc/symeig.cu`` (Horn's quaternion method for the fit), so a path reads
 no device value outside its loop ticks: the sync gates allow none.  In
-phase 4 the SYMEIG kernel against its plain version (``torch.linalg.eigh``
-on CPU copies) at B=1 for n = 3, 4, 6 and on 4096 random SPD 6x6 matrices
-with condition numbers up to 1e8 (eigenvalues, reconstruction,
-orthogonality, the degeneracy projector and its flag), timed beside its
-bound and ``torch.linalg.eigh`` on the card.  After the loop path,
+phase 4 the SYMEIG kernel (one warp a matrix, parallel-ordered Jacobi;
+ptxas must report no spill and no stack frame for it) against its plain
+version (``torch.linalg.eigh`` on CPU copies) at B = 1, 3 and 16 for n =
+3, 4, 6 and on 4096 random SPD 6x6 matrices with condition numbers up to
+1e8 (eigenvalues, reconstruction, orthogonality, the degeneracy projector
+and its flag); on repeated eigenvalues (each eigenspace's projector), a
+diagonal matrix (no sweep, the sorted diagonal exactly) and the
+indefinite 4x4 Horn matrices of a real ICP fit between two scans of the
+drive (and that fit's rotation against the same fit on the CPU); each
+shape timed beside an empty kernel's launch floor (``floor_ms``), the
+bound and, at B=1, ``torch.linalg.eigh`` on the card.  After the loop path,
 REPEATABLE: two eager engines over the loop drive's first 32 scans must
 agree bit for bit, and a graphed engine with them (and with the loop
 path's first published poses); the graphs' nodes, capture time and pool
@@ -148,10 +154,12 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import dataclasses
 import gc
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -173,6 +181,7 @@ from sc_lego_loam_tpu_torch.pipeline import SlamEngine
 from sc_lego_loam_tpu_torch.tools import bench, profile_stages, run_capacity
 from sc_lego_loam_tpu_torch.tools.knn_tune import (graph_ms, ptxas_lines,
                                                    uniform_cloud)
+from sc_lego_loam_tpu_torch.tools.symeig_ab import spd_batch
 from sc_lego_loam_tpu_torch.utils import (evaluate, export, native_io, se3,
                                           synthetic)
 
@@ -245,8 +254,10 @@ SYMEIG_TOL = 1e-5     # eigenvalues (x max|lambda|), reconstruction,
                       # orthogonality and projectors, against the plain
 SYMEIG_BATCH = 4096   # the conditioned batch: random SPD 6x6, condition
 SYMEIG_COND = 1e8     # numbers log-uniform up to this
-# H100 SXM data sheet, fp64 outside the tensor cores (the kernel's type).
-PEAK_FP64_FLOPS = 34e12
+SYMEIG_SIZES = (3, 4, 6)      # the two-stage LM, Horn's fit, the joint LM
+SYMEIG_BATCHES = (1, 3, 16)   # one engine; BatchEngine's vmapped calls
+SYMEIG_MAX_SWEEPS = 20        # the kernel's cap (kMaxSweeps)
+HORN_SCANS = (0, 4)           # the ICP fit of the Horn check: scan 4 onto 0
 REPEAT_SCANS = 32     # repeatable: the loop drive's first scans, 3 runs
 DET_SCANS = 12        # ... and the deterministic-mode listing's
 COPY_LIMIT = 1 << 20  # no leaf this large is copied into a graph per step
@@ -481,28 +492,28 @@ def small_linalg_times(card):
           f"(Horn, host clock; 15 fits per ICP) [{card}]", flush=True)
 
 
-def spd_batch(rng, B, n, cond_max):
-    """B random symmetric positive definite n x n float32 matrices: random
-    orthonormal eigenvectors, eigenvalues spread over a condition number
-    log-uniform in [1, cond_max] (both ends taken), scales 1e-2 .. 1e4."""
-    Q, _ = np.linalg.qr(rng.normal(size=(B, n, n)))
-    cond = 10.0 ** rng.uniform(0, np.log10(cond_max), B)
-    scale = 10.0 ** rng.uniform(-2, 4, B)
-    t = rng.random((B, n))
-    t[:, 0], t[:, 1] = 0.0, 1.0
-    evals = scale[:, None] * cond[:, None] ** -t
-    A = (Q * evals[:, None, :]) @ Q.transpose(0, 2, 1)
-    return ((A + A.transpose(0, 2, 1)) / 2).astype(np.float32)
-
-
 def symeig_flops(n, sweeps):
-    """fp64 operations of the Jacobi kernel on one matrix that took
-    ``sweeps`` sweeps: each sweep's off-diagonal sum (2 a pair) and its
-    n(n-1)/2 rotations (~16 for the angle, 8 for each of the 2n-2 entries
-    of A and V a rotation updates), the last convergence test, the sort."""
+    """The fewest operations a Jacobi eigensolver needs on one matrix that
+    took ``sweeps`` sweeps, the bound's count: each sweep's off-diagonal
+    sum (2 a pair) and its n(n-1)/2 rotations (~16 for the angle, 8 for
+    each of the 2n-2 entries of A and V a rotation updates), the last
+    convergence test, the sort."""
     pairs = n * (n - 1) // 2
     rotation = 16 + 8 * (2 * n - 2)
     return sweeps * pairs * (2 + rotation) + 2 * pairs + pairs * 2 * (n + 1)
+
+
+def symeig_schedule_ops(n, sweeps):
+    """fp64 operations the kernel's parallel-ordered schedule issues on one
+    matrix that took ``sweeps`` sweeps (a diagnostic, not the bound).  With
+    m = n rounded up to even, a sweep is the off-diagonal sum (2 a square)
+    and m - 1 rounds; a round is m / 2 angles (~20 each, the dummy
+    index's too) and the updates of A's columns and rows and V's columns
+    (3 a multiply and fused add, n^2 entries each).  Then the last
+    convergence test and the ranks (n^2 compares)."""
+    m = n + n % 2
+    sweep = 2 * n * n + (m - 1) * (20 * (m // 2) + 9 * n * n)
+    return sweeps * sweep + 2 * n * n + n * n
 
 
 def symeig_errors(A_np, thresholds):
@@ -559,72 +570,253 @@ def gap_thresholds(A_np):
     return thr.astype(np.float32)
 
 
-def symeig_checks(card):
-    """The symeig kernel against its plain version: B=1 at n = 3, 4, 6 and
-    the conditioned batch (B=4096, n=6), every error within SYMEIG_TOL
-    and equal degeneracy flags; timed at B=1 beside its bound, the plain
-    version and ``torch.linalg.eigh`` on the card.  Returns the JSON
-    row's numbers (n=6, B=1: the joint LM's shape)."""
-    rng = np.random.default_rng(21)
-    row, worst_abs = None, 0.0
-    for n in (3, 4, 6):
-        A_np = spd_batch(rng, 2, n, 1e3)[:1]
-        err = symeig_errors(A_np, gap_thresholds(A_np))
-        A = torch.from_numpy(A_np).cuda()
-        _, _, sweeps = symeig.launch(A, with_sweeps=True)
-        sweeps = int(sweeps.item())
-        ms = graph_ms(lambda: symeig.launch(A), GRAPH_CALLS)
-        A_cpu = torch.from_numpy(A_np)
-        symeig.symeig_plain(A_cpu)
-        t0 = time.perf_counter()
-        for _ in range(50):
-            symeig.symeig_plain(A_cpu)
-        plain_ms = 1e3 * (time.perf_counter() - t0) / 50
-        library_ms = time_ms(lambda: torch.linalg.eigh(A), 50)
-        moved = 4 * (2 * n * n + n)
-        ops = symeig_flops(n, sweeps)
-        bytes_ms = 1e3 * moved / PEAK_BYTES_PER_S
-        ops_ms = 1e3 * ops / PEAK_FP64_FLOPS
-        bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
-        worst_abs = max(worst_abs, err["ev_abs"])
-        print(f"kernel symeig n={n} B=1: sweeps={sweeps} "
-              f"eig_err={err['ev_rel']:.2e} (x max|lambda|) "
-              f"eig_abs_err={err['ev_abs']:.3e} recon={err['recon']:.2e} "
-              f"orth={err['orth']:.2e} projector={err['proj']:.2e} "
-              f"flags_equal={err['flags_equal']} (tol {SYMEIG_TOL}) "
-              f"ms={ms:.5f} (device, graph of {GRAPH_CALLS} calls) "
-              f"plain_ms={plain_ms:.5f} (torch.linalg.eigh on the CPU) "
-              f"library_ms={library_ms:.5f} (torch.linalg.eigh on the card, "
-              f"host status read included; never called by the port) "
-              f"bytes={moved} fp64_ops={ops} bound_ms={bound_ms:.7f} "
-              f"({bound_by}) [{card}]", flush=True)
-        for key in ("ev_rel", "recon", "orth", "proj"):
-            check(err[key] <= SYMEIG_TOL,
-                  f"symeig n={n}: {key} {err[key]} > {SYMEIG_TOL}")
-        check(err["flags_equal"], f"symeig n={n}: degeneracy flags differ")
-        if n == 6:
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms)
+def symeig_empty_launch():
+    """The library's empty kernel (the symeig block shape) on the current
+    stream: the launch floor of a call in a graph."""
+    err = cuda_knn._lib.symeig_empty_launch(
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: {err}")
+
+
+def symeig_bound(n, B, sweeps):
+    """(bound_ms, bound_by, bytes, ops, schedule_ops): the larger of the
+    bytes in and out over the card's memory rate and the fewest operations
+    a Jacobi solver needs for the sweeps these inputs took (``sweeps``,
+    one count a matrix) over the card's fp32 rate (the function takes and
+    returns fp32); beside them the operations the kernel's schedule
+    issues."""
+    moved = 4 * B * (2 * n * n + n)
+    ops = sum(symeig_flops(n, int(s)) for s in sweeps)
+    schedule_ops = sum(symeig_schedule_ops(n, int(s)) for s in sweeps)
+    bytes_ms = 1e3 * moved / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * ops / PEAK_FP32_FLOPS
+    bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    return bound_ms, bound_by, moved, ops, schedule_ops
+
+
+def check_symeig_errors(err, what):
+    for key in ("ev_rel", "recon", "orth", "proj"):
+        check(err[key] <= SYMEIG_TOL,
+              f"symeig {what}: {key} {err[key]} > {SYMEIG_TOL}")
+    check(err["flags_equal"], f"symeig {what}: degeneracy flags differ")
+
+
+def symeig_checks(scans, valids, gt, card):
+    """The symeig kernel against its plain version: B = 1, 3 and 16 at
+    n = 3, 4, 6 and the conditioned batch (B=4096, n=6), every error
+    within SYMEIG_TOL and equal degeneracy flags; Horn's indefinite 4x4
+    of a real ICP fit, repeated eigenvalues and a diagonal matrix
+    (``symeig_special_checks``).  Each shape timed as a graph of
+    GRAPH_CALLS calls beside the empty kernel's floor and the bound, at
+    B=1 also beside the plain version and ``torch.linalg.eigh`` on the
+    card.  Returns the JSON row's numbers (n=6, B=1: the joint LM's
+    shape)."""
+    floor_ms = graph_ms(symeig_empty_launch, GRAPH_CALLS)
+    print(f"kernel symeig floor: an empty kernel of the same block shape "
+          f"floor_ms={floor_ms:.5f} (device, graph of {GRAPH_CALLS} calls) "
+          f"[{card}]", flush=True)
+    rng = np.random.default_rng(21)          # B=1 and the conditioned batch
+    rng_b = np.random.default_rng(22)        # B = 3 and 16
+    row, worst_abs, times = None, 0.0, {}
+    for n in SYMEIG_SIZES:
+        for B in SYMEIG_BATCHES:
+            A_np = (spd_batch(rng, 2, n, 1e3)[:1] if B == 1
+                    else spd_batch(rng_b, B, n, 1e3))
+            err = symeig_errors(A_np, gap_thresholds(A_np))
+            A = torch.from_numpy(A_np).cuda()
+            _, _, sweeps = symeig.launch(A, with_sweeps=True)
+            sweeps = sweeps.cpu().numpy()
+            ms = graph_ms(lambda: symeig.launch(A), GRAPH_CALLS)
+            times[n, B] = ms
+            bound_ms, bound_by, moved, ops, sched = symeig_bound(n, B, sweeps)
+            line = (f"kernel symeig n={n} B={B}: sweeps={sweeps.min()}-"
+                    f"{sweeps.max()} eig_err={err['ev_rel']:.2e} (x "
+                    f"max|lambda|) eig_abs_err={err['ev_abs']:.3e} "
+                    f"recon={err['recon']:.2e} orth={err['orth']:.2e} "
+                    f"projector={err['proj']:.2e} flags_equal="
+                    f"{err['flags_equal']} (tol {SYMEIG_TOL}) ms={ms:.5f} "
+                    f"(device, graph of {GRAPH_CALLS} calls) "
+                    f"x_floor={ms / floor_ms:.2f} bytes={moved} "
+                    f"ops={ops} bound_ms={bound_ms:.3e} ({bound_by}) "
+                    f"schedule_fp64_ops={sched}")
+            if B == 1:
+                worst_abs = max(worst_abs, err["ev_abs"])
+                A_cpu = torch.from_numpy(A_np)
+                symeig.symeig_plain(A_cpu)
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    symeig.symeig_plain(A_cpu)
+                plain_ms = 1e3 * (time.perf_counter() - t0) / 50
+                library_ms = time_ms(lambda: torch.linalg.eigh(A), 50)
+                line += (f" plain_ms={plain_ms:.5f} (torch.linalg.eigh on "
+                         f"the CPU) library_ms={library_ms:.5f} "
+                         f"(torch.linalg.eigh on the card, host status read "
+                         f"included; never called by the port)")
+                if n == 6:
+                    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=library_ms,
+                               floor_ms=floor_ms)
+            else:
+                line += f" ratio_to_B1={ms / times[n, 1]:.3f}"
+            print(line + f" [{card}]", flush=True)
+            check_symeig_errors(err, f"n={n} B={B}")
 
     A_np = spd_batch(rng, SYMEIG_BATCH, 6, SYMEIG_COND)
     err = symeig_errors(A_np, gap_thresholds(A_np))
     A = torch.from_numpy(A_np).cuda()
     batch_ms = graph_ms(lambda: symeig.launch(A), GRAPH_CALLS)
+    times[6, SYMEIG_BATCH] = batch_ms
     _, _, sweeps = symeig.launch(A, with_sweeps=True)
     sweeps = sweeps.cpu().numpy()
+    bound_ms, bound_by, moved, ops, sched = symeig_bound(6, SYMEIG_BATCH,
+                                                         sweeps)
     print(f"kernel symeig n=6 B={SYMEIG_BATCH} (condition numbers up to "
           f"{SYMEIG_COND:.0e}): eig_err={err['ev_rel']:.2e} (x max|lambda|) "
           f"recon={err['recon']:.2e} orth={err['orth']:.2e} "
           f"projector={err['proj']:.2e} flags_equal={err['flags_equal']} "
           f"({err['degenerate']} degenerate) sweeps={sweeps.min()}-"
-          f"{sweeps.max()} ms={batch_ms:.5f} (device) [{card}]", flush=True)
-    for key in ("ev_rel", "recon", "orth", "proj"):
-        check(err[key] <= SYMEIG_TOL,
-              f"symeig batch: {key} {err[key]} > {SYMEIG_TOL}")
-    check(err["flags_equal"], "symeig batch: degeneracy flags differ")
-    check(int(sweeps.max()) < 20, "symeig batch: a matrix hit the sweep cap")
+          f"{sweeps.max()} (mean {sweeps.mean():.3f}) ms={batch_ms:.5f} "
+          f"(device, graph of {GRAPH_CALLS} calls) ops={ops} "
+          f"bound_ms={bound_ms:.3e} ({bound_by}) schedule_fp64_ops={sched} "
+          f"[{card}]", flush=True)
+    check_symeig_errors(err, "batch")
+    check(int(sweeps.max()) < SYMEIG_MAX_SWEEPS,
+          "symeig batch: a matrix hit the sweep cap")
+    print("kernel symeig ms by (n, B): " + " ".join(
+        f"{n},{B}={ms:.5f}" for (n, B), ms in times.items())
+        + f" floor_ms={floor_ms:.5f} [{card}]", flush=True)
+    symeig_special_checks(card)
+    horn_checks(scans, valids, gt, card)
     row["max_abs_err"] = worst_abs
     return row
+
+
+def symeig_special_checks(card):
+    """Repeated eigenvalues (n = 6, 4, 3: the kernel's projector onto each
+    eigenvalue's space against the plain version's) and a diagonal matrix
+    (no sweep; the sorted diagonal exactly, V a permutation)."""
+    rng = np.random.default_rng(23)
+    for evals in ((1, 1, 1, 5, 5, 9), (2, 2, 7, 7), (4, 4, 4)):
+        evals = np.asarray(evals, np.float64)
+        n = len(evals)
+        Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        A_np = (Q * evals) @ Q.T
+        A_np = ((A_np + A_np.T) / 2).astype(np.float32)[None]
+        w, V = symeig.symeig(torch.from_numpy(A_np).cuda())
+        wp, Vp = symeig.symeig_plain(torch.from_numpy(A_np))
+        w, V = w.cpu().double().numpy()[0], V.cpu().double().numpy()[0]
+        wp, Vp = wp.double().numpy()[0], Vp.double().numpy()[0]
+        ev_abs = float(np.abs(w - wp).max())
+        ev_rel = ev_abs / float(np.abs(wp).max())
+        proj = 0.0
+        for value in np.unique(evals):       # ascending, as the outputs
+            cols = np.flatnonzero(evals == value)
+            P = V[:, cols] @ V[:, cols].T
+            Pp = Vp[:, cols] @ Vp[:, cols].T
+            proj = max(proj, float(np.abs(P - Pp).max()))
+        print(f"kernel symeig repeated eigenvalues {evals.tolist()}: "
+              f"eig_err={ev_rel:.2e} (x max|lambda|) eigenspace_projector="
+              f"{proj:.2e} (tol {SYMEIG_TOL}) [{card}]", flush=True)
+        check(ev_rel <= SYMEIG_TOL and proj <= SYMEIG_TOL,
+              f"symeig repeated eigenvalues {evals.tolist()}: eigenvalues "
+              f"{ev_rel} or projectors {proj} > {SYMEIG_TOL}")
+    diag = np.array([3, -1, 2, 2, 0, 5], np.float32)
+    D = torch.from_numpy(np.diag(diag)[None]).cuda()
+    w, V, sweeps = symeig.launch(D, with_sweeps=True)
+    w, V, sweeps = w.cpu().numpy()[0], V.cpu().numpy()[0], int(sweeps[0])
+    perm = bool(np.isin(V, (0.0, 1.0)).all() and (V.sum(0) == 1).all()
+                and (V.sum(1) == 1).all())
+    exact = bool(np.array_equal(w, np.sort(diag))
+                 and np.array_equal(V @ np.diag(w) @ V.T, np.diag(diag)))
+    print(f"kernel symeig diagonal {diag.tolist()}: sweeps={sweeps} w={w} "
+          f"V a permutation {perm}, exact {exact} [{card}]", flush=True)
+    check(sweeps == 0 and perm and exact,
+          "symeig diagonal: not the sorted diagonal without a sweep")
+
+
+def horn_checks(scans, valids, gt, card):
+    """Horn's 4x4 matrices of a real ICP fit (traceless, so indefinite;
+    the fit takes the eigenvector of the largest eigenvalue):
+    ``icp.align`` on the card aligns scan HORN_SCANS[1] (icp_query_pad of
+    its valid points) onto scan HORN_SCANS[0] (history_pad of them) of the
+    drive from their true relative pose moved by 0.3 m and 2 degrees,
+    every ``se3.best_fit_transform`` call and its 4x4 recorded.  The
+    points are those 0.5 m above each scan's lowest: a scan's ground gives
+    a point-to-point fit no hold in the plane, and with it the fit slides
+    metres away.  Each 4x4: the kernel against the plain version
+    (eigenvalues, the top eigenvector's projector); each fit: its rotation
+    on the card against the same call on CPU copies; the fit itself within
+    FACTOR_TOL_M of the truth."""
+    cfg = default_config()
+    i0, i1 = HORN_SCANS
+
+    def cloud(i, n):
+        pts = scans[i][valids[i]]
+        pts = pts[pts[:, 2] > pts[:, 2].min() + 0.5]
+        pts = pts[::max(1, len(pts) // n)][:n]
+        return torch.from_numpy(np.ascontiguousarray(pts)).cuda()
+
+    dst, src = cloud(i0, cfg.cap.history_pad), cloud(i1, cfg.cap.icp_query_pad)
+    a = np.radians(2.0)
+    nudge = np.array([[np.cos(a), -np.sin(a), 0, 0.3],
+                      [np.sin(a), np.cos(a), 0, 0.0],
+                      [0, 0, 1, 0], [0, 0, 0, 1]])
+    T0 = nudge @ np.linalg.inv(gt[i0]) @ gt[i1]        # dst ~ T0 @ src
+    T0 = torch.from_numpy(T0.astype(np.float32)).cuda()
+    fits, mats = [], []
+    fit, eig = se3.best_fit_transform, se3.symeig
+
+    def record_fit(p, q, w=None):
+        T = fit(p, q, w)
+        fits.append((p.clone(), q.clone(), None if w is None else w.clone(),
+                     T.clone()))
+        return T
+
+    def record_eig(N):
+        mats.append(N.clone())
+        return eig(N)
+
+    se3.best_fit_transform, se3.symeig = record_fit, record_eig
+    try:
+        T, fitness, inliers = icp.align(
+            cfg, src, torch.ones(len(src), dtype=torch.bool, device="cuda"),
+            dst, torch.ones(len(dst), dtype=torch.bool, device="cuda"), T0)
+    finally:
+        se3.best_fit_transform, se3.symeig = fit, eig
+    N = torch.stack(mats)
+    w, V = symeig.symeig(N)
+    wp, Vp = symeig.symeig_plain(N.cpu())
+    w, V = w.cpu().double().numpy(), V.cpu().double().numpy()
+    wp, Vp = wp.double().numpy(), Vp.double().numpy()
+    ev_abs = np.abs(w - wp).max(1)
+    ev_rel = float((ev_abs / np.abs(wp).max(1)).max())
+    top, top_p = V[:, :, 3], Vp[:, :, 3]
+    proj = float(np.abs(top[:, :, None] * top[:, None, :]
+                        - top_p[:, :, None] * top_p[:, None, :]).max())
+    indefinite = bool(((wp[:, 0] < 0) & (wp[:, 3] > 0)).all())
+    rot = 0.0
+    for p, q, wt, T_card in fits:
+        T_cpu = fit(p.cpu(), q.cpu(), None if wt is None else wt.cpu())
+        rot = max(rot, float((T_card.cpu()[:3, :3] - T_cpu[:3, :3])
+                             .abs().max()))
+    truth = np.linalg.inv(gt[i0]) @ gt[i1]
+    moved = float(np.linalg.norm(T.cpu().numpy()[:3, 3] - truth[:3, 3]))
+    print(f"kernel symeig Horn 4x4 of an ICP fit (scan {i1} onto scan {i0}, "
+          f"{len(src)} x {len(dst)} points, {len(mats)} fits): indefinite "
+          f"{indefinite} (eigenvalues {wp[-1].round(1)}) eig_err={ev_rel:.2e} "
+          f"(x max|lambda|) eig_abs_err={float(ev_abs.max()):.3e} "
+          f"top_projector={proj:.2e} rotation_vs_cpu="
+          f"{rot:.2e} (tol {SYMEIG_TOL}); fitness {float(fitness):.4f}, "
+          f"inliers {float(inliers):.3f}, translation off the truth "
+          f"{moved:.4f} m [{card}]", flush=True)
+    check(len(mats) == len(fits) == cfg.loop.icp_max_iterations,
+          "Horn: the ICP made another number of fits")
+    check(indefinite, "Horn: a 4x4 that is not indefinite")
+    check(moved < FACTOR_TOL_M, f"Horn: the ICP fit ended {moved} m off")
+    check(ev_rel <= SYMEIG_TOL and proj <= SYMEIG_TOL and rot <= SYMEIG_TOL,
+          f"Horn: eigenvalues {ev_rel}, projector {proj} or rotation {rot} "
+          f"> {SYMEIG_TOL}")
 
 
 def make_drive(cfg, drive, card):
@@ -1416,6 +1608,71 @@ def prepare_targets_times(card):
         print(f"prepare_targets: {caller}: T={T} ms={ms:.4f} (device, graph "
               f"of 10 calls) bytes_moved={moved} bound_ms={bound_ms:.5f} "
               f"(bytes) bound_share={bound_ms / ms:.4f} [{card}]", flush=True)
+
+
+def set_condition_times(card):
+    """``set_condition`` (``csrc/graph_nodes.cu``), the one-thread kernel
+    that sets a CUDA-graph IF node from a device bool before the node:
+    GRAPH_CALLS gates (``graphs.cond``, a one-element body) captured in one
+    graph with the predicate false and true, beside a graph of the false
+    side alone (the clone of its input that each gate makes before its
+    node) and the empty kernel; device ms a gate, the least of 3 replays.
+    A loop tick's graph launches it 3 times (two verifications and the
+    re-solve), 22 when the re-solve's body runs (its 19 gated GN
+    iterations), the batch's loop tick the same."""
+    cap = graphs.CudaCapture("cuda")
+    x = torch.zeros(1, device="cuda")
+
+    def gates(value):
+        pred = torch.full((), value, dtype=torch.bool, device="cuda")
+
+        def fn():
+            y = x
+            for _ in range(GRAPH_CALLS):
+                y = graphs.cond(pred, lambda y=y: y + 1.0, y)
+            return y
+        return fn
+
+    def clones():
+        y = x
+        for _ in range(GRAPH_CALLS):
+            y = y.clone()
+        return y
+
+    def empties():
+        for _ in range(GRAPH_CALLS):
+            symeig_empty_launch()
+        return x
+
+    out = {}
+    for name, fn in (("false gate", gates(False)), ("true gate", gates(True)),
+                     ("clone", clones), ("empty kernel", empties)):
+        cap.warm_up(fn)
+        replay, _, _ = cap.capture(fn)
+        best = float("inf")
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / GRAPH_CALLS)
+        out[name] = best
+        if name == "true gate":
+            check(float(y) == GRAPH_CALLS, "set_condition: a true gate's "
+                  "body did not run")
+        if name == "false gate":
+            check(float(y) == 0.0, "set_condition: a false gate's body ran")
+    print(f"kernel set_condition (graph_nodes.cu, one thread, IF node's "
+          f"flag): ms a gate in a graph of {GRAPH_CALLS}: false "
+          f"{out['false gate']:.5f}, true {out['true gate']:.5f} (body: an "
+          f"add and a copy), the clone alone {out['clone']:.5f}, so "
+          f"set_condition + its IF node "
+          f"{out['false gate'] - out['clone']:.5f}; empty kernel "
+          f"{out['empty kernel']:.5f} (the bound: a launch) [{card}]",
+          flush=True)
+    return out
 
 
 # (name, k, queries, targets, max_sq_dist, items): the batch axis at the
@@ -2537,6 +2794,21 @@ def run_capacity_card(engine, scans, valids, card):
     return launch_counts()
 
 
+def stack_frames(log) -> dict:
+    """Bytes of stack frame (local memory) per function in ptxas's
+    report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
 def check_no_jax():
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "sc_lego_loam_tpu")
@@ -2547,7 +2819,8 @@ def check_no_jax():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--drive", choices=sorted(DRIVES), default="figure8")
-    drive = parser.parse_args().drive
+    args = parser.parse_args()
+    drive = args.drive
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs only on a card",
               file=sys.stderr)
@@ -2576,7 +2849,15 @@ def main():
         check(stores == 0 and loads == 0, f"{name} spills registers")
     check(bool(kernels_built) or info.seconds == 0.0,
           "nvcc printed no ptxas report")
-
+    # A register array indexed at run time would sit in local memory (a
+    # stack frame): the symeig schedule must be unrolled to constants.
+    frames = stack_frames(info.log)
+    for name, nbytes in frames.items():
+        if "symeig" in name:
+            print(f"  ptxas: {name}: {nbytes} bytes stack frame", flush=True)
+            check(nbytes == 0, f"{name} keeps a stack frame")
+    check(any("symeig_kernel" in name for name in frames)
+          or info.seconds == 0.0, "no ptxas report of the symeig kernels")
     # ~50 % valid targets and 90 % live queries, uniform in a 40x40x4 m box.
     results = [kernel_vs_plain(name, k, *uniform_cloud(seed, Q, T), max_sq,
                                card)
@@ -2586,9 +2867,10 @@ def main():
              for seed, (name, k, Q, T, max_sq) in enumerate(VLP16_SHAPES, 3)]
     tie_and_small_count_checks(card)
     batched_kernel_checks(card)
-    sym_row = symeig_checks(card)
+    sym_row = symeig_checks(scans, valids, gt, card)
     small_linalg_times(card)
     prepare_targets_times(card)
+    set_condition_times(card)
     b_scans, b_valids, b_gt = b_drive.result()
     o_scans, o_valids, o_gt = o_drive.result()
     pool.shutdown()

@@ -15,8 +15,14 @@ kernel reads nothing back.
 
 Bound: neither bytes nor operations.  A call at B=1 moves a few hundred
 bytes and does ~1e4 fp64 operations, nanoseconds at the card's rates; it
-costs its launch and one thread's chain of dependent fp64 steps (one
-kernel, one matrix per thread, fp64 in registers).
+costs its launch and a chain of dependent fp64 steps.  The kernel keeps
+that chain short: one warp per matrix (lane j holds column j of A, lane
+8 + j column j of V, fp64 in registers), a parallel (round-robin) Jacobi
+order whose disjoint rotations run at once (5 rounds of 3 a sweep at n=6
+in place of 15 serial rotations), an angle from two reciprocal square
+roots, and a warp-uniform stopping test; a batch of B matrices is
+ceil(B / 4) blocks of 4 warps, so the BatchEngine's calls take the time
+of one.
 
 ``symeig`` is the custom op ``sc_lego_loam_tpu_torch::symeig``, routed by
 the device of its input: a CUDA tensor launches the kernel (or the call
