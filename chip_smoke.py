@@ -145,6 +145,18 @@ the batch path at S = 3 is graphed, and an eager S = 3 batch runs behind
 M2 and is compared with it (the same loops, trajectories bit-equal or
 within 5 mm).  Every path warms up 16 scans (the bench's).
 
+After the capacity runway, the DIAGNOSTICS: the 11 tools of
+``sc_lego_loam_tpu_torch/tools/`` that take the engine apart
+(``profile_iters``, ``profile_odo``, ``profile_s2m``, ``tune_research``,
+``diag_loops``, ``diag_real``, ``debug_fig8``, ``diag_tiny``,
+``profile_micro``, ``profile_latency``, ``profile_engine2``) through their
+functions at a reduced depth, on the ordered drive, the loop drive and the
+loop path's end state (the tiny configuration's drives cast here); every
+CUDA-event time finite and > 0, one k=5 call a call of each kNN part, two a
+research of ``scan_to_map``, and ``diag_loops`` over the loop path's drive
+closing its loops with true factors and a bit-equal trajectory; their kNN
+and symeig launches count under the path name "diagnostics".
+
 It fails (non-zero exit, no ``ok`` line) when there is no card or any
 check fails.  The second-to-last line is the kernel summary, the last the
 ``ok`` object.
@@ -172,13 +184,20 @@ import torch
 from sc_lego_loam_tpu_torch import (graphs, imu as imu_mod, loop, mapping,
                                     pipeline, posegraph, runner)
 from sc_lego_loam_tpu_torch.config import (ImuConfig, default_config,
-                                           synthetic_config, vlp16_config)
+                                           synthetic_config,
+                                           tiny_test_config, vlp16_config)
 from sc_lego_loam_tpu_torch.models import scan_context
 from sc_lego_loam_tpu_torch.ops import (cuda_knn, icp, knn as plain_knn,
                                         solver, symeig)
 from sc_lego_loam_tpu_torch.ops.compact import compact
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
-from sc_lego_loam_tpu_torch.tools import bench, profile_stages, run_capacity
+from sc_lego_loam_tpu_torch.tools import (bench, debug_fig8, diag_loops,
+                                          diag_real, diag_tiny,
+                                          profile_engine2, profile_iters,
+                                          profile_latency, profile_micro,
+                                          profile_odo, profile_s2m,
+                                          profile_stages, run_capacity,
+                                          tune_research)
 from sc_lego_loam_tpu_torch.tools.knn_tune import (graph_ms, ptxas_lines,
                                                    uniform_cloud)
 from sc_lego_loam_tpu_torch.tools.symeig_ab import spd_batch
@@ -1192,7 +1211,7 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
     check_graphs(label, engine, card)
     summary = dict(scans_per_s=fps, ate=ate, ate_raw=ate_raw,
                    syncs_elsewhere=len(stray), peak=peak - held,
-                   ticks=ticks)
+                   ticks=ticks, est=est)
     return launches, engine, summary
 
 
@@ -2794,6 +2813,127 @@ def run_capacity_card(engine, scans, valids, card):
     return launch_counts()
 
 
+# The diagnostics phase: each tool's functions at a reduced depth on the
+# drives above (rays are cast here for the tiny configuration only).
+DIAG_ODO_GRID = [(8, 2), (2, 2), (1, 1)]
+DIAG_MAP_GRID = [(8, 3), (2, 2), (1, 1)]
+DIAG_CALLS = 4        # scans (calls) a timing pass: the tools' 8
+# An engine with loop closure on spends ~8 s warming up and capturing its
+# loop graph: tune_research runs one variant (base is the ordered path's
+# configuration), diag_real the two without loop closure.
+DIAG_VARIANTS = ("both_re",)
+DIAG_REAL_VARIANTS = ("odo", "odo-nodeskew")
+DIAG_DRIVE_SCANS = 32    # tune_research, diag_real: 16 warm-up + 16
+DIAG_ENGINE2_SCANS = 24  # profile_engine2: 8 warm-up (every capture) + 16
+DIAG_ENGINE2_WARM = 8
+DIAG_FIG8_FRAMES = 6     # debug_fig8: the first frames of its 60-scan drive
+DIAG_TINY_SCANS = 40     # diag_tiny: the first half of its 80-scan drive
+DIAG_MICRO_REPS = 5
+DIAG_LATENCY_REPS = 2    # profile_latency: 2 x 2 + 2 eager calls a stage
+
+
+def run_diagnostics(cfg, pts, msk, gt, engine, lidar, o_scans, o_valids,
+                    o_gt, card, dev="cuda"):
+    """The 11 diagnostics of ``sc_lego_loam_tpu_torch/tools/`` on the card,
+    through their functions, at a reduced depth: the profilers on the
+    ordered drive's first scans (``synthetic_config()``, the tools' own
+    configuration) and on the loop path's end state (``engine``), the
+    drives on the loop drive and the ordered drive, the tiny configuration
+    on its own small casts.  No profiler session is opened (``profile=
+    False``: launches print n/a).  Gates: every CUDA-event time finite and
+    > 0; one k=5 kNN call a call of each kNN part of ``profile_s2m`` (and
+    of each geometry part); ``scan_to_map`` at (it, re) making two k=5
+    calls a research; ``diag_loops`` over the loop path's drive closing the
+    loop path's loops (the same factors), every accepted factor true, and
+    its trajectory bit-equal to the loop path's.  Returns the phase's kNN
+    and symeig launches."""
+    t0 = time.perf_counter()
+    reset_counts()
+    scfg = synthetic_config()
+    ocpu = (o_scans[:DIAG_CALLS], o_valids[:DIAG_CALLS])
+    device_ms = []
+
+    def timed(rows, label):
+        device_ms.extend((label, r["name"], r["device_ms"]) for r in rows)
+
+    odo_rows, map_rows = profile_iters.run(
+        scfg, *ocpu, dev, card, odo_grid=DIAG_ODO_GRID,
+        map_grid=DIAG_MAP_GRID, reps=1, profile=False, engine=engine)
+    timed(odo_rows + map_rows, "profile_iters")
+    _, _, rows = profile_odo.run(scfg, *ocpu, dev, card, grid=[(8, 4)],
+                                 reps=1, profile=False)
+    timed(rows, "profile_odo")
+    sizes, parts, s2m_map, s2m_odo = profile_s2m.run(
+        scfg, *ocpu, dev, card, map_grid=[(8, 3)], odo_grid=[(1, 1)],
+        n=DIAG_CALLS, reps=1, profile=False, engine=engine)
+    timed(parts + s2m_map + s2m_odo, "profile_s2m")
+    for r in parts:
+        check(r["knn_k5"] == 1, f"profile_s2m {r['name']}: "
+              f"{r['knn_k5']} k=5 calls a call, expected 1")
+    for r in map_rows + s2m_map:
+        want = 2 * profile_iters.researches(r["it"], r["re"])
+        check(r["knn_k5"] == want, f"{r['name']}: {r['knn_k5']} k=5 calls a "
+              f"call, expected {want} (two a research)")
+    n = DIAG_DRIVE_SCANS
+    tune_research.run(
+        DIAG_VARIANTS, [11], dev, card, n_scans=n, warm=bench.WARMUP,
+        sequence=lambda seed: (o_scans[:n], o_valids[:n], o_gt[:n]))
+    print(f"diagnostics: diag_loops over the loop path's drive "
+          f"({len(gt)} scans, {cfg.lidar.name}) [{card}]", flush=True)
+    res = diag_loops.replay(cfg, pts, msk, gt, dev, label="loop drive")
+    diag, mine = res["engine"], engine
+    same_loops = int(diag.loops_closed) == int(mine.loops_closed) and all(
+        torch.equal(getattr(diag.m.loops, f), getattr(mine.m.loops, f))
+        for f in ("i", "j", "count"))
+    bad = [f for f in res["factors"] if f[3] >= FACTOR_TOL_M]
+    print(f"diagnostics: diag_loops loop_ticks={len(res['records'])} "
+          f"candidates_verified="
+          f"{sum(r['sc'] is not None or r['rs'] is not None for r in res['records'])} "
+          f"loops_closed={int(diag.loops_closed)} (loop path "
+          f"{int(mine.loops_closed)}) factors={len(res['factors'])} "
+          f"false={len(bad)} trajectory_bit_equal="
+          f"{np.array_equal(res['est'], lidar['est'])} [{card}]", flush=True)
+    check(same_loops, "diag_loops: not the loop path's loops")
+    check(res["factors"] and not bad,
+          f"diag_loops: accepted factors not all true: {res['factors']}")
+    check(np.array_equal(res["est"], lidar["est"]),
+          "diag_loops: the trajectory differs from the loop path's")
+    check(len(res["records"]) == diag.loop_ticks,
+          "diag_loops: a loop tick without its record")
+    del res, diag
+    free_memory()
+    for variant in DIAG_REAL_VARIANTS:
+        diag_real.diagnose(variant, diag_real.variant_config(variant),
+                           pts[:n], msk[:n], gt[:n], dev, card)
+    n2 = DIAG_ENGINE2_SCANS
+    profile_engine2.run(scfg, o_scans[:n2], o_valids[:n2], dev, card,
+                        warm=DIAG_ENGINE2_WARM)
+    tiny = debug_fig8.make_scans(tiny_test_config())
+    debug_fig8.run(tiny_test_config(),
+                   *(x[:DIAG_FIG8_FRAMES] for x in tiny), dev, card)
+    tcfg = diag_tiny.config()
+    diag_tiny.run(tcfg, *(x[:DIAG_TINY_SCANS]
+                          for x in diag_tiny.make_scans(tcfg)), dev, card)
+    micro, same = profile_micro.run(scfg, o_scans[1], o_valids[1], dev, card,
+                                    reps=DIAG_MICRO_REPS)
+    check(same, "profile_micro: the two descriptors differ")
+    device_ms.extend(("profile_micro", r["name"], r["device_ms"])
+                     for r in micro)
+    latency = profile_latency.run(
+        cfg, pts[:profile_latency.N], msk[:profile_latency.N], dev, card,
+        engine=engine, reps=DIAG_LATENCY_REPS, profile=False)
+    timed(latency, "profile_latency")
+    bad = [x for x in device_ms
+           if x[2] is None or not np.isfinite(x[2]) or x[2] <= 0]
+    check(not bad, f"diagnostics: device times not finite and > 0: {bad}")
+    launches = launch_counts()
+    took = time.perf_counter() - t0
+    print(f"diagnostics phase: {len(device_ms)} device times, kNN launches "
+          f"k=5 {launches[5]} k=1 {launches[1]} symeig "
+          f"{launches['symeig']}, {took:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def stack_frames(log) -> dict:
     """Bytes of stack frame (local memory) per function in ptxas's
     report."""
@@ -2971,6 +3111,9 @@ def main():
     elapsed("latency")
     paths["capacity"] = run_capacity_card(engine, scans, valids, card)
     elapsed("the capacity runway")
+    paths["diagnostics"] = run_diagnostics(
+        base, pts, msk, gt, engine, lidar, o_scans, o_valids, o_gt, card)
+    elapsed("the diagnostics")
     # From here on nothing counts as a launch of a path.
     checkpoint_resume(engine, pts, msk, card)
     elapsed("the checkpoint")

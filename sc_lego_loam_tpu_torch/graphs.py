@@ -489,6 +489,23 @@ class StepGraph:
         add_counts(self.delta)
         return out
 
+    @property
+    def static_inputs(self) -> list:
+        """The static buffers of the inputs after the state (tensor leaves
+        only), in argument order: what ``replay`` reads."""
+        return [x for x in self._static[self._n_state:]
+                if isinstance(x, torch.Tensor)]
+
+    def replay(self):
+        """One replay of the captured graph on what the static buffers hold
+        now, with no copy-in (a caller that writes ``static_inputs`` itself
+        times that copy apart)."""
+        self.calls += 1
+        self.replays += 1
+        out = self._replay()
+        add_counts(self.delta)
+        return out
+
     def load(self, state):
         """``state`` in the static state buffers (copied where a leaf is
         not already there); returns the static state."""

@@ -87,14 +87,34 @@ def split_by_part(events, n_parts, is_kernel):
     return [tuple(p) for p in out]
 
 
-def measure(parts, device):
+def profile_launches(fns, device):
+    """[(device kernels, their summed ms)] of one call of each of ``fns``,
+    all in ONE ``torch.profiler`` session (each session costs seconds of
+    its own); None on the CPU.  Open it only after every timing of the
+    process: after a first session every later launch is slower."""
+    if torch.device(device).type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, fn in enumerate(fns):
+            time.sleep(GAP_S)
+            with record_function(f"{PART_TAG}{i}"):
+                fn()
+                torch.cuda.synchronize(device)
+    return split_by_part(prof.events(), len(fns),
+                         lambda e: e.device_type == DeviceType.CUDA)
+
+
+def measure(parts, device, profile=True):
     """``parts``: (name, fn, n) triples.  Times every part first (n calls
     synchronized one by one, then n calls between CUDA events), then counts
-    each one's host syncs, then profiles one call of each, all in one
-    session.  Returns a dict per part: ``sync_ms``, ``device_ms``,
-    ``host_ms``, ``launches``, ``kernel_ms``, ``syncs`` and ``sync_at``
-    (where each was raised); all but the first and third None on the
-    CPU."""
+    each one's host syncs, then (with ``profile``) profiles one call of
+    each, all in one session.  Returns a dict per part: ``sync_ms``,
+    ``device_ms``, ``host_ms``, ``launches``, ``kernel_ms``, ``syncs`` and
+    ``sync_at`` (where each was raised); all but the first and third None
+    on the CPU, ``launches`` and ``kernel_ms`` None without ``profile``."""
     cuda = torch.device(device).type == "cuda"
 
     def sync():
@@ -141,19 +161,10 @@ def measure(parts, device):
                           if "synchroniz" in str(w.message)]
         row["syncs"] = len(row["sync_at"])
         sync()
+    if not profile:
+        return rows
 
-    # One session for every part: each session costs seconds of its own.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i, (_, fn, _) in enumerate(parts):
-            time.sleep(GAP_S)
-            with record_function(f"{PART_TAG}{i}"):
-                fn()
-                sync()
-    got = split_by_part(prof.events(), len(parts),
-                        lambda e: e.device_type == DeviceType.CUDA)
+    got = profile_launches([fn for _, fn, _ in parts], device)
     for row, (launches, kernel_ms) in zip(rows, got):
         row["launches"], row["kernel_ms"] = launches, kernel_ms
     return rows

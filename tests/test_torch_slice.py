@@ -188,11 +188,15 @@ import sc_lego_loam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 36, names
+assert len(names) >= 61, names
 for name in ('imu', 'runner', 'utils.profiling', 'utils.mulran',
              'utils.native_io', 'utils.export', 'tools.run_synthetic',
              'tools.run_mulran', 'tools.bench', 'tools.profile_stages',
-             'tools.run_capacity'):
+             'tools.run_capacity', 'tools.profile_iters',
+             'tools.profile_odo', 'tools.profile_s2m', 'tools.tune_research',
+             'tools.diag_loops', 'tools.diag_real', 'tools.debug_fig8',
+             'tools.diag_tiny', 'tools.profile_micro',
+             'tools.profile_latency', 'tools.profile_engine2'):
     assert 'sc_lego_loam_tpu_torch.' + name in names, name
 from sc_lego_loam_tpu_torch.config import ImuConfig, tiny_test_config
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine
