@@ -138,7 +138,14 @@ going into it (per-tick copies of the small leaves, the end state's banks
 with later rows reset), eager and graphed, bit for bit equal to each
 other and to the path's own tick; the CLOSING-WINDOW LATENCY: a fresh
 graphed engine over the whole drive, a synchronize after every scan, p50
-/ p95 / p99 / max and each tick outcome's latency.  After the repeatable
+/ p95 / p99 / max and each tick outcome's latency.  The tracer
+(``utils/profiling.py``, ``graphs.probe``) adds: in phase 4 the PROBE
+kernel timed in a graph with its on-flag off and on beside the empty
+kernel; after the closing tick, the PROBE RECORDS of the loop path's
+graphs (tracing on for the whole drive) against the plain version, the
+CPU ``ProbeRing`` in an engine run through ``graphs.EagerStandIn`` over
+the same scans, equal site for site and value for value in every scan,
+a closing tick among them.  After the repeatable
 phase, the BATCH at S = 8 and 16 (graphed, windows spread over scans 0-80
 of the batch drive, one engine at a time, each freed before the next);
 the batch path at S = 3 is graphed, and an eager S = 3 batch runs behind
@@ -1031,6 +1038,7 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the scans, an earlier path's engine
     engine = SlamEngine(cfg)
+    engine.trace.on()           # its host spans are read after the drive
     feed_imu, batch_sizes = imu_feeder(engine, gt) if with_imu \
         else ((lambda i: None), [])
     reset_counts()
@@ -1123,7 +1131,7 @@ def run_loop_path(cfg, label, pts, msk, gt, card, with_imu=False,
     fps = timed / wall
     expected5 = expected_k5(cfg, engine.map_ticks)
     k1_cap = 2 * engine.loop_ticks * (cfg.loop.icp_max_iterations + 1)
-    stages = engine.timer.summary(skip_first=LOOP_WARMUP)
+    stages = engine.trace.summary(skip_first=LOOP_WARMUP)
 
     print(f"{label}: scans={n_scans} "
           f"warmup={LOOP_WARMUP} scans_per_s={fps:.3f} "
@@ -1694,6 +1702,134 @@ def set_condition_times(card):
     return out
 
 
+def probe_times(card):
+    """``probe`` (``csrc/graph_nodes.cu``), the one-thread kernel of the
+    tracer's device records (``graphs.probe``): GRAPH_CALLS probes captured
+    in one graph, replayed with the on-flag off (the cost the step graphs
+    carry always: a perception replay holds 16) and on (a record each),
+    beside the empty kernel; device ms a probe, the least of 3 replays.
+    The records of the flag-on replays must be GRAPH_CALLS each, in launch
+    order, with the value read at run time."""
+    ring = graphs.ProbeRing("cuda")
+    value = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def probes():
+        with graphs.probing(ring):
+            for _ in range(GRAPH_CALLS):
+                graphs.probe("loop.detect", value)
+                value.add_(1)
+        return value
+
+    def empties():
+        for _ in range(GRAPH_CALLS):
+            symeig_empty_launch()
+            value.add_(1)
+        return value
+
+    out = {}
+    for name, fn, on in (("off", probes, False), ("on", probes, True),
+                         ("empty kernel", empties, False)):
+        stream = torch.cuda.Stream()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+        ring.set(on)
+        best = float("inf")
+        for _ in range(4):
+            value.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / GRAPH_CALLS)
+        out[name] = best
+        got = ring.drain()
+        ring.set(False)
+        if name == "off":
+            check(got["records"] == [], "probe: a probe recorded with its "
+                  "flag off")
+        if name == "on":
+            check(got["dropped"] == 0 and [v for _, _, v in got["records"]]
+                  == [float(k) for k in range(GRAPH_CALLS)] * 4,
+                  "probe: the records of the flag-on replays are not one a "
+                  "probe, in order, with the value at run time")
+    print(f"kernel probe (graph_nodes.cu, one thread, the tracer's device "
+          f"record): ms a probe + an add in a graph of {GRAPH_CALLS}: flag "
+          f"off {out['off']:.5f}, flag on {out['on']:.5f}; empty kernel + "
+          f"an add {out['empty kernel']:.5f} (the bound: a launch) [{card}]",
+          flush=True)
+    return out
+
+
+def probe_checks(cfg, engine, pts, msk, card):
+    """The loop path's records, taken by the ``probe`` kernels captured in
+    its three graphs (tracing was on for the whole drive), against the
+    plain version: the CPU ``graphs.ProbeRing`` (host records of the
+    values each probe reads) in a second engine over the same scans, its
+    steps run through ``graphs.EagerStandIn`` (every gate in "select", a
+    probe in a gate's body recording only where the gate took it).  Per
+    scan the sites and values must be equal, no record dropped, one
+    perception ``begin`` a call, and at least one closing loop tick among
+    them."""
+    graphed = engine.trace.drain()
+    engine.trace.off()
+    plain = SlamEngine(cfg)
+    plain.trace.probes = graphs.ProbeRing("cpu")
+    plain.use_graphs(graphs.EagerStandIn())
+    plain.trace.on()
+    t0 = time.perf_counter()
+    for i in range(len(pts)):
+        plain.process_scan(pts[i], msk[i], t=i * 0.1)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    want = plain.trace.drain()
+
+    def by_scan(records):
+        scans = []
+        for site, _, value in records:
+            if site == "perception.begin":
+                scans.append([])
+            scans[-1].append((site, value))
+        return scans
+
+    got_scans, want_scans = by_scan(graphed["records"]), by_scan(
+        want["records"])
+    differ = [k for k, (a, b) in enumerate(zip(got_scans, want_scans))
+              if a != b]
+    ticks = [s["loop_tick"] for s in graphed["scans"] if s["loop_tick"]]
+    closing = [t for t in ticks if t["closed"]]
+    per_scan = Counter(len(r) for r in got_scans)
+    sites = Counter(site for site, _, _ in graphed["records"])
+    times = [t for _, t, _ in graphed["records"]]
+    print(f"probe records (the loop path's three graphs, tracing on, "
+          f"{len(got_scans)} scans) against the plain version (CPU "
+          f"ProbeRing, EagerStandIn, {plain_s:.1f} s): records "
+          f"{len(graphed['records'])} vs {len(want['records'])}, scans "
+          f"differing {len(differ)} (first {differ[:5]}), dropped "
+          f"{graphed['dropped']}, records a scan {dict(sorted(per_scan.items()))}, "
+          f"loop ticks {len(ticks)} (closing {len(closing)}, verifications "
+          f"{sites['loop.verify_begin']}, re-solves "
+          f"{sites['loop.resolve_begin']}, GN iterations "
+          f"{sites['loop.gn_iter']}), clock error "
+          f"{graphed['error_ns']} ns [{card}]", flush=True)
+    check(len(got_scans) == len(pts) == len(graphed["scans"]),
+          "probe records: not one perception begin a scan")
+    check(graphed["dropped"] == {"spans": 0, "records": 0},
+          "probe records: dropped")
+    check(not differ and len(got_scans) == len(want_scans),
+          "probe records: the kernels' sites or values differ from the "
+          "plain version's")
+    check(bool(closing), "probe records: no closing loop tick")
+    check(times == sorted(times), "probe records: not in device order")
+    trace_equal = torch.equal(plain.m.kf.poses6, engine.m.kf.poses6)
+    print(f"probe records: the plain engine's keyframe poses bit-equal to "
+          f"the loop path's={trace_equal} [{card}]", flush=True)
+    del plain
+    free_memory()
+
+
 # (name, k, queries, targets, max_sq_dist, items): the batch axis at the
 # shapes a BatchEngine of three sequences gives the kernel (scan-to-map),
 # and the ICP at three sequences and at the 8 pairs of verify_cross_loops.
@@ -1838,6 +1974,7 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card, S=3,
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     engine = pbatch.BatchEngine(cfg, n_seq=S, eager=eager)
+    engine.trace.on()           # its host spans are read after the drive
     check(engine.device.type == "cuda", "the default device is not the card")
     check((engine.graphs is None) == eager, f"{label}: graphs {eager=}")
     reset_counts()
@@ -1943,7 +2080,7 @@ def run_batch_path(cfg, pts_all, msk_all, gt_all, single, card, S=3,
           f"mapping_ticks={engine._map_ticks} loop_ticks={engine.loop_ticks} "
           f"knn_launches_k5={launches[5]} knn_launches_k1={launches[1]} "
           f"loops_closed={closed} [{card}]", flush=True)
-    stages = engine.timer.summary(skip_first=LOOP_WARMUP)
+    stages = engine.trace.summary(skip_first=LOOP_WARMUP)
     print(f"{label} stages, host ms to launch (mean): " + " ".join(
         f"{name}={1e3 * st['mean']:.2f} (n={st['n']})"
         for name, st in sorted(stages.items())) + f" [{card}]", flush=True)
@@ -2746,7 +2883,7 @@ def run_ordered_path(pts, msk, gt, card):
     est = engine.trajectory_array()
     ate = evaluate.ate_rmse(est, gt[:len(est)])
     expected = expected_k5(cfg, engine.map_ticks)
-    stages = engine.timer.summary(skip_first=bench.WARMUP)
+    stages = engine.trace.summary(skip_first=bench.WARMUP)
     print(f"ordered path (synthetic_config: beam order, reshape projection, "
           f"no de-skew, loop closure on; tools.bench.run_engine): scans="
           f"{len(pts)} warmup={bench.WARMUP} scans_per_s={fps:.3f} "
@@ -3011,6 +3148,7 @@ def main():
     small_linalg_times(card)
     prepare_targets_times(card)
     set_condition_times(card)
+    probe_times(card)
     b_scans, b_valids, b_gt = b_drive.result()
     o_scans, o_valids, o_gt = o_drive.result()
     pool.shutdown()
@@ -3044,6 +3182,8 @@ def main():
     elapsed("the loop path")
     run_closing_tick(base, engine, lidar, card)
     elapsed("the closing tick")
+    probe_checks(base, engine, pts, msk, card)
+    elapsed("the probe records")
     paths["closing-window latency"] = run_closing_latency(base, pts, msk,
                                                           card)
     elapsed("the closing-window latency")

@@ -13,6 +13,17 @@
 // and the body stream begun capturing into the node's body graph.
 // graph_cond_end ends that capture and counts the body's nodes by type.
 // Needs CUDA 12.4 or later.
+//
+// probe (one thread), the device half of the engine's tracer (graphs.probe,
+// utils/profiling.py): captured into the step graphs always, it returns at
+// once while its int32 on-flag is 0; otherwise it takes the next slot of a
+// record buffer with atomicAdd and writes (%globaltimer ns, site id << 32 |
+// the bits of one float32 value) there, the value read at run time through
+// a pointer (kind 0: none, 1: bool, 2: int32, 3: float32, 4: two bools as
+// a + 2 b).  A full buffer takes no record; the head counts on,
+// so that the drops can be told.  taken, when set, is the effective
+// predicate of the gates around an eagerly run ("select") body: the probe
+// records only where it holds.
 
 #include <cuda_runtime.h>
 
@@ -51,6 +62,43 @@ extern "C" int graph_stream_create(void** out) {
       cudaStreamCreateWithFlags(&stream, cudaStreamNonBlocking);
   *out = stream;
   return static_cast<int>(err);
+}
+
+__global__ void probe(const int* on, long long* ring, int* head, int cap,
+                      int site, const void* value, int kind,
+                      const bool* taken) {
+  if (*on == 0) return;
+  if (taken != nullptr && !*taken) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  float v = 0.0f;
+  switch (kind) {
+    case 1: v = *static_cast<const bool*>(value) ? 1.0f : 0.0f; break;
+    case 2: v = static_cast<float>(*static_cast<const int*>(value)); break;
+    case 3: v = *static_cast<const float*>(value); break;
+    case 4: {
+      const bool* b = static_cast<const bool*>(value);
+      v = (b[0] ? 1.0f : 0.0f) + (b[1] ? 2.0f : 0.0f);
+      break;
+    }
+    default: break;
+  }
+  const int slot = atomicAdd(head, 1);
+  if (slot >= cap) return;
+  ring[2 * slot] = static_cast<long long>(t);
+  ring[2 * slot + 1] = static_cast<long long>(
+      (static_cast<unsigned long long>(static_cast<unsigned int>(site)) << 32)
+      | __float_as_uint(v));
+}
+
+extern "C" int graph_probe(void* stream, const void* on, void* ring,
+                           void* head, int cap, int site, const void* value,
+                           int kind, const void* taken) {
+  probe<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(on), static_cast<long long*>(ring),
+      static_cast<int*>(head), cap, site, value, kind,
+      static_cast<const bool*>(taken));
+  return static_cast<int>(cudaGetLastError());
 }
 
 #if CUDART_VERSION >= 12040

@@ -54,6 +54,16 @@ on where it runs:
 ``gate(pred)`` is the flag a ``cond`` takes: the host's ``bool`` in
 ``"read"`` (so a caller may skip what follows a false gate, as the eager
 engine always has), the device tensor otherwise.
+
+``probe(site, value)`` is one record of the engine's tracer
+(``utils/profiling.py``) where the step runs it: a ``probe`` kernel
+(``csrc/graph_nodes.cu``) on a CUDA device, captured into the graphs
+always and recording only while its ``ProbeRing``'s on-flag is set, or a
+host record on the CPU.  Only a step run inside ``probing(ring)`` records
+(the engine's steps; the batch engine's ``vmap`` and a step called on its
+own run none); a throwaway warm-up records nothing, and in "select" a
+probe inside a gate's body records only where the body's effective
+predicate holds, as ``_count_in_body`` weights its counts.
 """
 
 from __future__ import annotations
@@ -62,9 +72,11 @@ import contextlib
 import ctypes
 import time
 
+import numpy as np
 import torch
 
 from .ops import cuda_knn, symeig
+from .utils.profiling import SITE_ID, SITES
 
 
 def flatten(tree) -> list:
@@ -269,6 +281,183 @@ def cond(pred, body, init):
     for name, n in zip(*counted):
         cap.body_types[name] = cap.body_types.get(name, 0) + n
     return unflatten(init, iter(out))
+
+
+class ProbeRing:
+    """The device half of an engine's tracer: ``capacity`` records of
+    (t_ns, site, value), the head that the probes advance, and the on-flag
+    they read.  A full buffer takes no record; the head counts on, so
+    ``drain`` reports the drops.  On the CPU the records are kept on the
+    host, stamped with ``time.perf_counter_ns()``."""
+
+    CLOCK_BRACKETS = 20
+
+    def __init__(self, device, capacity: int = 1 << 17):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.capacity = capacity
+        self.cuda = device.type == "cuda"
+        self.flag = torch.zeros(1, dtype=torch.int32, device=device)
+        self._last_clock = None    # (device ns, offset ns) of the last drain
+        if self.cuda:
+            cuda_knn.build()
+            self.head = torch.zeros(1, dtype=torch.int32, device=device)
+            self.buf = torch.zeros((capacity, 2), dtype=torch.int64,
+                                   device=device)
+            self._clock = (
+                torch.ones(1, dtype=torch.int32, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device),
+                torch.zeros((self.CLOCK_BRACKETS, 2), dtype=torch.int64,
+                            device=device))
+        else:
+            self._flag = self.flag.numpy()     # read without a tensor op
+            self._host = []
+            self._count = 0
+
+    def set(self, on: bool):
+        """Turn the probes on or off: a fill on the current stream, ordered
+        with the replays; no host read."""
+        self.flag.fill_(1 if on else 0)
+
+    def count(self) -> int:
+        """Records taken since the last drain, dropped ones included (a
+        host read)."""
+        return int(self.head.item()) if self.cuda else self._count
+
+    def record(self, site: int, value, taken):
+        if not self.cuda:
+            if self._flag[0]:
+                self._count += 1
+                if len(self._host) < self.capacity:
+                    self._host.append((site, time.perf_counter_ns(),
+                                       None if value is None
+                                       else value.detach().clone(),
+                                       None if taken is None
+                                       else taken.clone()))
+            return
+        kind, ptr = _value_kind(value)
+        _check(cuda_knn._lib.graph_probe(
+            torch.cuda.current_stream(self.device).cuda_stream,
+            self.flag.data_ptr(), self.buf.data_ptr(), self.head.data_ptr(),
+            self.capacity, site, ptr, kind,
+            None if taken is None else taken.data_ptr()), "graph_probe")
+
+    def clock(self):
+        """(device ns, offset ns, error ns): ``%globaltimer`` minus
+        ``time.perf_counter_ns()``, from the tightest of
+        ``CLOCK_BRACKETS`` brackets (a synchronize, a host read, one probe,
+        a synchronize, a host read) and its half-width."""
+        on, head, buf = self._clock
+        head.zero_()
+        brackets = []
+        for _ in range(self.CLOCK_BRACKETS):
+            torch.cuda.synchronize(self.device)
+            h0 = time.perf_counter_ns()
+            _check(cuda_knn._lib.graph_probe(
+                torch.cuda.current_stream(self.device).cuda_stream,
+                on.data_ptr(), buf.data_ptr(), head.data_ptr(),
+                self.CLOCK_BRACKETS, 0, None, 0, None), "graph_probe")
+            torch.cuda.synchronize(self.device)
+            brackets.append((h0, time.perf_counter_ns()))
+        d = buf[:, 0].cpu().numpy()
+        k = min(range(len(brackets)),
+                key=lambda i: brackets[i][1] - brackets[i][0])
+        h0, h1 = brackets[k]
+        return int(d[k]), int(d[k]) - (h0 + h1) // 2, (h1 - h0) // 2
+
+    def drain(self) -> dict:
+        """The records since the last drain, oldest first, as (site name,
+        t_ns on the ``perf_counter_ns`` clock, value), and empty the
+        buffer.  On the device: a synchronize, then the clock's offset
+        measured now (``clock``); where an earlier drain measured it too,
+        the offset is interpolated linearly between the two in device time
+        (``drift_ns``: how far they differ), so a drain just after
+        ``set(True)`` gives a phase its first point.  The only host reads
+        of the tracer are here."""
+        if not self.cuda:
+            recs = [(SITES[s], t, _host_value(v)) for s, t, v, taken
+                    in self._host if taken is None or bool(taken)]
+            dropped = self._count - len(self._host)
+            self._host, self._count = [], 0
+            return {"records": recs, "offset_ns": 0, "error_ns": 0,
+                    "dropped": dropped, "drift_ns": 0}
+        torch.cuda.synchronize(self.device)
+        n = int(self.head.item())
+        rows = self.buf[:min(n, self.capacity)].cpu().numpy()
+        self.head.zero_()
+        d1, off1, err = self.clock()
+        t = rows[:, 0]
+        offset = np.full(len(t), off1, np.int64)
+        drift = 0
+        if self._last_clock is not None:
+            d0, off0 = self._last_clock
+            drift = off1 - off0
+            if d1 > d0:
+                offset = off0 + np.round(
+                    (t - d0) * (drift / (d1 - d0))).astype(np.int64)
+        self._last_clock = (d1, off1)
+        sites = (rows[:, 1] >> 32).tolist()
+        values = (rows[:, 1] & 0xFFFFFFFF).astype(np.uint32).view(
+            np.float32).tolist()
+        recs = [(SITES[s], int(h), float(v))
+                for s, h, v in zip(sites, (t - offset).tolist(), values)]
+        return {"records": recs, "offset_ns": off1, "error_ns": err,
+                "dropped": max(0, n - self.capacity), "drift_ns": drift}
+
+
+def _host_value(v) -> float:
+    if v is None:
+        return 0.0
+    if v.dtype == torch.bool and v.numel() == 2:
+        return float(v[0]) + 2.0 * float(v[1])
+    return float(v)
+
+
+# A probe's value: the kernel's kind code by dtype (csrc/graph_nodes.cu).
+_KINDS = {torch.bool: 1, torch.int32: 2, torch.float32: 3}
+
+
+def _value_kind(value):
+    if value is None:
+        return 0, None
+    if value.dtype == torch.bool and value.numel() == 2 \
+            and value.is_contiguous():
+        return 4, value.data_ptr()
+    if value.numel() != 1 or value.dtype not in _KINDS:
+        raise ValueError(f"probe: a value of shape {tuple(value.shape)} "
+                         f"{value.dtype}: one bool, int or float32 (or two "
+                         "bools) only")
+    return _KINDS[value.dtype], value.data_ptr()
+
+
+_probe_rings: list = [None]   # the ring of the step running now
+
+
+@contextlib.contextmanager
+def probing(ring: ProbeRing | None):
+    """``probe`` records into ``ring`` inside the block."""
+    _probe_rings.append(ring)
+    try:
+        yield
+    finally:
+        _probe_rings.pop()
+
+
+def probe(site: str, value: torch.Tensor | None = None):
+    """One record at ``site`` (``utils.profiling.SITES``) with ``value`` (a
+    bool, int or float32 scalar the step holds, or two bools), read when
+    the probe runs (module docstring)."""
+    ring = _probe_rings[-1]
+    if ring is None or not _counting[-1]:
+        return
+    taken = None
+    if _modes[-1] == "select" and _select_preds:
+        taken = _select_preds[0]
+        for pred in _select_preds[1:]:
+            taken = taken & pred
+    ring.record(SITE_ID[site], value, taken)
 
 
 # cudaGraphNodeType, in its order ("unclassified": the nodes of a body

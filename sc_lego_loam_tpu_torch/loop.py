@@ -197,6 +197,7 @@ def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
             config, mesh, bank.desc, bank.count, cur_desc)
     rs_idx = detect_radius(config, kf, cur)
     flags = torch.stack([sc_idx >= 0, (rs_idx >= 0) & (rs_idx != sc_idx)])
+    graphs.probe("loop.detect", flags)
     if mesh is not None:
         run_sc, run_rs = mesh_mod.agree(flags, mesh)
     elif graphs.host_reads():
@@ -205,9 +206,18 @@ def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
         run_sc, run_rs = flags
 
     def verify_into(loops, closed, idx, place, yaw):
+        graphs.probe("loop.verify_begin")
         new, ok = verify_and_add(config, kf, loops, cur, idx, place, yaw,
                                  mesh)
+        graphs.probe("loop.verify_end", ok)
         return new, closed | ok
+
+    def resolve_body():
+        graphs.probe("loop.resolve_begin")
+        poses6 = posegraph.solve(config, kf.poses6, kf.count, kf.odom_z,
+                                 loops, mesh=mesh)
+        graphs.probe("loop.resolve_end")
+        return poses6
 
     closed = torch.zeros((), dtype=torch.bool, device=dev)
     # The SC yaw seeds the verification ICP.
@@ -221,6 +231,5 @@ def device_tick(config: PipelineConfig, kf: KeyframeStore, bank,
         resolve = (run_sc or run_rs) and mesh_mod.agree(closed, mesh)
     else:
         resolve = closed
-    poses6 = graphs.cond(resolve, lambda: posegraph.solve(
-        config, kf.poses6, kf.count, kf.odom_z, loops, mesh=mesh), kf.poses6)
+    poses6 = graphs.cond(resolve, resolve_body, kf.poses6)
     return kf._replace(poses6=poses6), loops, closed

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
+from . import graphs
 from .config import PipelineConfig
 
 from .ops import cuda_knn, solver, voxel
@@ -302,6 +303,7 @@ def scan_to_map(config: PipelineConfig, T_guess: torch.Tensor,
         new_done, new_state = iteration(it, state)
         state = solver.freeze(done, state, new_state)
         done = done | new_done
+        graphs.probe("mapping.lm_iter", done)
     return torch.where(enough, state[0], T_guess)
 
 

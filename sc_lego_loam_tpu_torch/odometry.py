@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
+from . import graphs
 from .config import PipelineConfig
 
 from .ops import residuals, solver
@@ -292,6 +293,7 @@ def _lm_loop(xi0, xi_anchor, tube, param_idx, terms, ocfg):
         new_done, new_state = iteration(it, state)
         state = solver.freeze(done, state, new_state)
         done = done | new_done
+        graphs.probe("perception.lm_iter", done)
     return state[0], state[1][-1].sum()
 
 

@@ -154,6 +154,9 @@ def load_library(path: str):
     lib.graph_cond_end.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     lib.graph_cond_end.restype = ctypes.c_int
+    lib.graph_probe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.graph_probe.restype = ctypes.c_int
     configs = {}
     for k in KS:
         out = (ctypes.c_int * len(KernelConfig._fields))()

@@ -197,7 +197,9 @@ class BatchEngine:
         self._map_ticks = 0
         self.loop_ticks = 0
         self.last_map_time = -1e9
-        self.timer = StageTimer()
+        # The tracer's host spans (utils/profiling.py), off until
+        # trace.on(); no probes run under the batch's vmap.
+        self.trace = StageTimer(on=False)
         self._seq = torch.arange(n, device=dev)
 
         cfg = config
@@ -274,24 +276,28 @@ class BatchEngine:
         fused poses (S,4,4) as a device tensor (no host sync; fetch the
         trajectories at the end with ``trajectory_array``).  With a mesh:
         all S sequences' scans in, this rank's ``n_local`` poses out."""
-        cfg = self.config
-        points, masks, t_dev, i = self._stage(points, masks, t)
-        with self.timer.stage("perception"):
-            out_pts, out_mask, fused = self._run(0, self._perceive, points,
-                                                 masks, i)
+        cfg, tr = self.config, self.trace
+        tr.scan = self._scan_i
+        with tr.stage("process_scans"):
+            with tr.stage("stage_scan"):
+                points, masks, t_dev, i = self._stage(points, masks, t)
+            with tr.stage("perception_step"):
+                out_pts, out_mask, fused = self._run(0, self._perceive,
+                                                     points, masks, i)
 
-        if t - self.last_map_time >= cfg.mapping.process_interval:
-            self.last_map_time = t
-            with self.timer.stage("mapping"):
-                (fused,) = self._run(1, self._map_step, out_pts, out_mask,
-                                     points, masks, t_dev, i)
-            self._map_ticks += 1
-            # The loop cadence counts mapping ticks, as in the JAX package.
-            if cfg.loop.enabled and \
-                    self._map_ticks % cfg.loop.check_every_ticks == 0:
-                with self.timer.stage("loop"):
-                    fused = self._loop_tick(i)
-                self.loop_ticks += 1
+            if t - self.last_map_time >= cfg.mapping.process_interval:
+                self.last_map_time = t
+                with tr.stage("mapping_step"):
+                    (fused,) = self._run(1, self._map_step, out_pts,
+                                         out_mask, points, masks, t_dev, i)
+                self._map_ticks += 1
+                # The loop cadence counts mapping ticks, as in the JAX
+                # package.
+                if cfg.loop.enabled and \
+                        self._map_ticks % cfg.loop.check_every_ticks == 0:
+                    with tr.stage("loop_step"):
+                        fused = self._loop_tick(i)
+                    self.loop_ticks += 1
         self._scan_i += 1
         # A graph's output is rewritten by its next replay.
         return fused if self.graphs is None else fused.clone()

@@ -178,9 +178,12 @@ def perception_step(config: PipelineConfig, state: PerceptionState,
     Writes the trajectory rings in place.
     Returns (state, odom_pose, out_pts, out_mask, fused_pose)."""
     cfg = config
+    graphs.probe("perception.begin")
     fo = frontend.run(cfg, points, mask)
     fo = _pre_deskew(cfg, fo, state.odo, state.imu, t)
+    graphs.probe("perception.frontend")
     fs, out_pts, out_mask = _extract(cfg, fo.cloud, fo.outlier)
+    graphs.probe("perception.features")
     if cfg.imu.enabled and cfg.imu.prior:
         # IMU initial guess (updateInitialGuess, fA.cpp:1639-1664): the
         # orientation delta is trusted (attitude is drift-bounded); the
@@ -204,6 +207,7 @@ def perception_step(config: PipelineConfig, state: PerceptionState,
     state.odom_traj.index_copy_(0, i, odom_pose[None])
     state.traj_t.index_copy_(0, i, t.reshape(1))
     state = state._replace(odo=odo, scan_i=state.scan_i + 1)
+    graphs.probe("perception.end")
     return state, odom_pose, out_pts, out_mask, fused
 
 
@@ -218,11 +222,13 @@ def mapping_step(config: PipelineConfig, mst: MapperState,
     downsampled scan is the first rank's (the voxel filter's float sums
     round run to run on the card), and the owner writes the rows."""
     cfg = config
+    graphs.probe("mapping.begin")
     sub_c, sub_cm, sub_s, sub_sm = mapping.build_submap(cfg, mst.kf, mesh)
     c, cm, s, sm, o, om = mapping.downsample_scan(
         cfg, corner_xyz, corner_mask, surf_xyz, surf_mask, out_pts, out_mask)
     if mesh is not None:
         c, cm, s, sm, o, om = mesh_mod.share((c, cm, s, sm, o, om), mesh)
+    graphs.probe("mapping.submap")
 
     T_guess = mst.correction @ odom_pose
     pose = mapping.scan_to_map(cfg, T_guess, c, cm, torch.cat([s, o]),
@@ -245,6 +251,7 @@ def mapping_step(config: PipelineConfig, mst: MapperState,
     desc = scan_context.make_descriptor(points, mask, cfg.sc)
     bank = scan_context.append(mst.bank, desc, cfg.cap.max_keyframes, should,
                                mesh)
+    graphs.probe("mapping.end", inserted)
     return MapperState(
         kf=kf, bank=bank, loops=mst.loops, correction=correction, pose=pose,
         last_kf_pose=torch.where(inserted, pose, mst.last_kf_pose),
@@ -261,12 +268,14 @@ def loop_step(config: PipelineConfig, mst: MapperState,
     pose, correction and last_kf_pose from the re-solved graph.  The big
     keyframe cloud banks are only read (across the ranks with a
     ``mesh``)."""
+    graphs.probe("loop.begin")
     cur = torch.clamp(mst.kf.count.long() - 1, min=0).reshape(1)
     kf, loops, closed = loop.device_tick(
         config, mst.kf, mst.bank, mst.loops,
         mesh_mod.gather_rows(mst.bank.desc, cur, mesh)[0], mesh)
     new_pose = se3.pose6_to_mat(kf.poses6[cur][0])
     new_corr = new_pose @ se3.mat_inv(mst.last_kf_odom)
+    graphs.probe("loop.end", closed)
     return mst._replace(
         kf=kf, loops=loops,
         correction=torch.where(closed, new_corr, mst.correction),
@@ -354,6 +363,10 @@ class SlamEngine:
     for comparisons against the graphs and per-sub-stage profiles.
     With a ``mesh`` (gloo and NCCL collectives are not captured here) and on
     the CPU the engine always runs eagerly; ``eager=False`` there raises.
+    ``trace`` is the engine's tracer (``utils/profiling.StageTimer``), off
+    until ``trace.on()``: host spans around each call and its steps, and
+    the records of the probes inside the steps (``graphs.probe``), drained
+    by ``trace.drain()``.
     The engine is bit for bit the same either way: the graphs replay the
     eager kernels, and every kernel on the path is deterministic (the voxel
     filter's and the pose graph's scatter-sums sort their indices).
@@ -401,10 +414,30 @@ class SlamEngine:
         self.last_map_time = -1e9
         self.map_ticks = 0
         self.loop_ticks = 0
-        self.timer = StageTimer()
+        # The tracer (utils/profiling.py), off until trace.on(): host
+        # spans around the calls, probes inside the steps.
+        self.trace = StageTimer(on=False,
+                                probes=graphs.ProbeRing(self.device))
         self._scans_fed = 0
         self._warned_kf_cap = False
         self._warned_loop_cap = False
+        trace = self.trace
+
+        def probed(fn):
+            # The tracer's ring as the step runs (a graph keeps the one
+            # its capture saw).
+            def step(*args):
+                with graphs.probing(trace.probes):
+                    return fn(*args)
+            return step
+
+        cfg, shard = config, self.shard
+        self._steps = (
+            probed(lambda p, corr, pts, msk, t: perception_step(
+                cfg, p, corr, pts, msk, t)),
+            probed(lambda m, *args: (mapping_step(cfg, m, *args,
+                                                  mesh=shard),)),
+            probed(lambda m: (loop_step(cfg, m, mesh=shard),)))
         self.graphs = None
         self._scan_buf = None
         if not eager:
@@ -414,16 +447,12 @@ class SlamEngine:
         """Run the three steps through ``graphs.StepGraph``s on ``backend``
         (``graphs.CudaCapture``; the CPU tests hand in
         ``graphs.EagerStandIn``)."""
-        cfg = self.config
+        perceive, map_step, loop_fn = self._steps
         self.graphs = (
-            graphs.StepGraph(
-                lambda p, corr, pts, msk, t: perception_step(
-                    cfg, p, corr, pts, msk, t), backend, "perception_step"),
-            graphs.StepGraph(
-                lambda m, *args: (mapping_step(cfg, m, *args),), backend,
-                "mapping_step"),
-            graphs.StepGraph(lambda m: (loop_step(cfg, m),), backend,
-                             "loop_step", warm_copy=graphs.small_copy))
+            graphs.StepGraph(perceive, backend, "perception_step"),
+            graphs.StepGraph(map_step, backend, "mapping_step"),
+            graphs.StepGraph(loop_fn, backend, "loop_step",
+                             warm_copy=graphs.small_copy))
 
     # Views of the device state for export, checkpoint and tests; the
     # setters copy what they are given onto the engine's device.
@@ -521,8 +550,15 @@ class SlamEngine:
     def process_scan(self, points, mask, t: float):
         """Feed one scan (padded (N,3) + mask, numpy or tensors).  Returns
         the fused pose as a device tensor (no sync)."""
-        cfg = self.config
-        points, mask, t_dev = self._stage_scan(points, mask, t)
+        tr = self.trace
+        tr.scan = self._scans_fed
+        with tr.stage("process_scan"):
+            return self._process_scan(points, mask, t)
+
+    def _process_scan(self, points, mask, t: float):
+        cfg, tr = self.config, self.trace
+        with tr.stage("stage_scan"):
+            points, mask, t_dev = self._stage_scan(points, mask, t)
 
         self._scans_fed += 1
         if self._scans_fed == cfg.cap.max_scans + 1:
@@ -531,15 +567,11 @@ class SlamEngine:
                 "later poses overwrite the last slot; raise "
                 "CapacityConfig.max_scans", RuntimeWarning)
 
-        with self.timer.stage("perception"):
-            if self.graphs is None:
-                self.p, odom_pose, out_pts, out_mask, fused = \
-                    perception_step(cfg, self.p, self.m.correction, points,
-                                    mask, t_dev)
-            else:
-                self.p, odom_pose, out_pts, out_mask, fused = self.graphs[0](
-                    self.p, self.m.correction, points, mask, t_dev)
-                fused = fused.clone()   # the graph's output is rewritten
+        with tr.stage("perception_step"):
+            self.p, odom_pose, out_pts, out_mask, fused = self._step(0)(
+                self.p, self.m.correction, points, mask, t_dev)
+        if self.graphs is not None:
+            fused = fused.clone()   # the graph's output is rewritten
 
         if t - self.last_map_time >= cfg.mapping.process_interval:
             self.last_map_time = t
@@ -547,19 +579,14 @@ class SlamEngine:
             args = (odo.corner_last.xyz, odo.corner_last.mask,
                     odo.surf_last.xyz, odo.surf_last.mask, out_pts, out_mask,
                     odom_pose, points, mask, t_dev, self.p.imu)
-            with self.timer.stage("mapping"):
-                if self.graphs is None:
-                    self.m = mapping_step(cfg, self.m, *args,
-                                          mesh=self.shard)
-                else:
-                    (self.m,) = self.graphs[1](self.m, *args)
+            with tr.stage("mapping_step"):
+                (self.m,) = self._step(1)(self.m, *args)
             self.map_ticks += 1
             # Loop-closure cadence: every Nth mapping tick (the reference's
             # 1 Hz thread vs its ~3.3 Hz mapping = every ~3rd tick).
             if cfg.loop.enabled and \
                     self.map_ticks % cfg.loop.check_every_ticks == 0:
-                with self.timer.stage("loop"):
-                    self.loop_tick()
+                self.loop_tick()
                 self.loop_ticks += 1
         if not (self._warned_kf_cap and self._warned_loop_cap):
             self._check_caps_host_bound()
@@ -568,10 +595,13 @@ class SlamEngine:
     def loop_tick(self):
         """One loop-closure tick on the mapper state: ``loop_step``
         eagerly, or a replay of its graph."""
-        if self.graphs is None:
-            self.m = loop_step(self.config, self.m, mesh=self.shard)
-        else:
-            (self.m,) = self.graphs[2](self.m)
+        with self.trace.stage("loop_step"):
+            (self.m,) = self._step(2)(self.m)
+
+    def _step(self, k: int):
+        """Step ``k`` (0 perception, 1 mapping, 2 loop): its graph, or the
+        step itself when the engine runs eagerly."""
+        return self._steps[k] if self.graphs is None else self.graphs[k]
 
     def _check_caps_host_bound(self):
         """Warn from the host-side tick counters alone, which bound the

@@ -380,8 +380,10 @@ def _iterate(config: PipelineConfig, X: torch.Tensor, step,
 
     def iteration(X, done):
         converged, X_new = step(X)
-        return (torch.where(done[..., None, None, None], X, X_new),
-                done | converged)
+        X = torch.where(done[..., None, None, None], X, X_new)
+        done = done | converged
+        graphs.probe("loop.gn_iter", done if done.dim() == 0 else None)
+        return X, done
 
     X, done = iteration(X, done)
     for _ in range(config.posegraph.max_gn_iterations - 1):

@@ -153,6 +153,7 @@ def run_engine(cfg, scans, valids, warmup, imu=None, latency=None,
     synchronize and its wall milliseconds are appended: scans/s from such a
     run measures latency, not throughput."""
     engine = SlamEngine(cfg, device=device)
+    engine.trace.on()           # its host spans: block_ordered prints them
     n = len(scans)
     cursor = 0
 
@@ -232,7 +233,7 @@ def block_ordered(device, cfg=None, n_scans=N_SCANS, warmup=WARMUP,
                 "revisit_events": evaluate.revisit_mask(
                     gt, cfg.loop.rs_search_radius)[1],
             }
-            print(engine.timer.table(skip_first=2), file=sys.stderr)
+            print(engine.trace.table(skip_first=2), file=sys.stderr)
     for k in ("ate", "ate_steady"):
         v = sweep[k]
         sweep[f"{k}_mean"] = round(sum(v) / len(v), 4)

@@ -70,6 +70,7 @@ def main(argv=None) -> int:
         skew=args.skew, **kw)
 
     engine = SlamEngine(cfg, device=args.device)
+    engine.trace.on()           # its host spans are printed at the end
     t0 = time.time()
     for i in range(args.scans):
         ts = time.time()
@@ -92,7 +93,7 @@ def main(argv=None) -> int:
     print(f"keyframes: {int(engine.map.kf.count)}  "
           f"loop closures: {int(engine.loops_closed)}")
     print("\nper-stage host timings (after the first two samples):")
-    print(engine.timer.table(skip_first=2))
+    print(engine.trace.table(skip_first=2))
 
     if args.export:
         pts = export.global_map_points(engine)

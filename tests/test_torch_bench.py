@@ -178,7 +178,7 @@ def test_every_block_gives_bench_py_keys(monkeypatch):
     _, teng = _engines(_clover_gt(), gt)
     teng.loops_closed = torch.tensor(1, dtype=torch.int32)
     teng.m.kf.count = torch.tensor(3, dtype=torch.int32)
-    teng.timer = types.SimpleNamespace(table=lambda skip_first: "")
+    teng.trace = types.SimpleNamespace(table=lambda skip_first: "")
     zeros = np.zeros((n, 4, 3), np.float32)
     fed = []
 

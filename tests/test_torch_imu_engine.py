@@ -75,6 +75,7 @@ def runs():
 
     _drive(je, scans, valids, imu, keep)
     te = tp.SlamEngine(cfg, device="cpu")
+    te.trace.on()               # its host spans are read by a test
     _drive(te, scans, valids, imu)
     return cfg, scans, valids, gt, je, te, snap
 
@@ -172,4 +173,4 @@ def test_imu_engines_track_alike(runs):
     assert dt.max() < 2.0 * max(ate_t, ate_j) and dr.max() < 3.0, (dt, dr)
     assert int(te.m.kf.count) == int(je.map.kf.count)
     assert int(te.p.imu.count) == int(je.p.imu.count)
-    assert set(te.timer.summary()) >= {"perception", "mapping"}
+    assert set(te.trace.summary()) >= {"perception_step", "mapping_step"}

@@ -11,9 +11,6 @@ a tick without a candidate, one whose candidate the ICP rejects, one that
 closes a loop.  One gated ``loop_step`` is held against the JAX package's
 on the closing state at tests/test_torch_loop.py's tolerance."""
 
-import dataclasses
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -29,47 +26,18 @@ from sc_lego_loam_tpu_torch.utils import convert, se3 as tse3
 torch.set_num_threads(1)
 
 OUTCOMES = ("no candidate", "rejected", "closed")
-def _mapper_np(cfg, outcome):
-    """A single-sequence mapper state as numpy, in the JAX field layout.
-    Closed and rejected: eight keyframes round a 4 m circle, the last where
-    the first stood with its stored pose drifted (tests/
-    test_torch_batch_loop.py's sequence 0); no candidate: three keyframes
-    0.1 s apart."""
-    from sc_lego_loam_tpu.utils import synthetic
-    from torch_keyframes import circle, sequence, twist
 
-    world = synthetic.default_world(seed=3)
-    rng = np.random.default_rng(4)
-    if outcome == "no candidate":
-        gt = np.stack([np.eye(4, dtype=np.float32)] * 3)
-        gt[:, 0, 3], gt[:, 2, 3] = [20.0, 20.4, 20.8], 2.0
-        est, times = gt, np.float32([0, 0.1, 0.2])
-    else:
-        gt = circle(8)
-        est = gt.copy()
-        est[-1] = est[-1] @ twist([0, 0, 0.02, 0.15, -0.1, 0])
-        times = np.arange(8, dtype=np.float32)
-    kf, bank = sequence(cfg, world, gt, est, times, rng)
-    L = cfg.posegraph.max_loops
-    eye = np.eye(4, dtype=np.float32)
-    return types.SimpleNamespace(
-        kf=types.SimpleNamespace(**kf), bank=types.SimpleNamespace(**bank),
-        loops=types.SimpleNamespace(
-            i=np.zeros(L, np.int32), j=np.zeros(L, np.int32),
-            z=np.broadcast_to(eye, (L, 4, 4)).copy(), count=np.int32(0)),
-        correction=eye, pose=est[-1], last_kf_pose=est[-1],
-        last_kf_odom=est[-1].copy(), loops_closed=np.int32(0),
-        kf_dropped=np.int32(0))
+
+def _mapper_np(cfg, outcome):
+    from torch_keyframes import loop_state
+
+    return loop_state(cfg, outcome)
 
 
 def _cfg(outcome):
-    from torch_keyframes import loop_cfg, short_loop
+    from torch_keyframes import loop_tick_cfg
 
-    cfg = short_loop(loop_cfg(tiny_torch))
-    if outcome == "rejected":      # a fitness gate nothing passes
-        cfg = cfg.replace(loop=dataclasses.replace(cfg.loop,
-                                                   fitness_threshold=-1.0))
-    return cfg
+    return loop_tick_cfg(tiny_torch, outcome)
 
 
 def _leaves(state):

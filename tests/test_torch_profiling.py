@@ -1,6 +1,7 @@
 """``utils/profiling.py`` of the port: ``StageTimer`` gives the JAX package's
-numbers for the same samples, the engine records its three stages, and
-``device_trace`` writes a ``torch.profiler`` trace."""
+numbers for the same samples, the engine's tracer (``engine.trace``)
+records its calls and their steps, and ``device_trace`` writes a
+``torch.profiler`` trace."""
 
 import json
 import os
@@ -36,16 +37,22 @@ def test_stage_timer_matches_the_jax_package():
 def test_engine_times_its_stages():
     cfg = tiny_test_config()
     engine = SlamEngine(cfg, device="cpu")
+    assert not engine.trace.enabled            # off until asked for
+    engine.trace.on()
     n = cfg.lidar.max_points
     for i in range(9):              # 3 mapping ticks, 1 loop tick
         engine.process_scan(np.zeros((n, 3), np.float32), np.zeros(n, bool),
                             t=0.1 * i)
-    got = engine.timer.summary(skip_first=0)
+    got = engine.trace.summary(skip_first=0)
     assert {k: v["n"] for k, v in got.items()} == {
-        "perception": 9, "mapping": engine.map_ticks,
-        "loop": engine.loop_ticks}
+        "process_scan": 9, "stage_scan": 9, "perception_step": 9,
+        "mapping_step": engine.map_ticks, "loop_step": engine.loop_ticks}
     assert engine.map_ticks == 3 and engine.loop_ticks == 1
-    assert "perception" in engine.timer.table()
+    assert "perception_step" in engine.trace.table()
+    drained = engine.trace.drain()
+    assert len(drained["scans"]) == 9
+    assert sum(s["loop_tick"] is not None for s in drained["scans"]) == 1
+    assert engine.trace.summary() == {}
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

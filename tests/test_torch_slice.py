@@ -196,7 +196,8 @@ for name in ('imu', 'runner', 'utils.profiling', 'utils.mulran',
              'tools.profile_odo', 'tools.profile_s2m', 'tools.tune_research',
              'tools.diag_loops', 'tools.diag_real', 'tools.debug_fig8',
              'tools.diag_tiny', 'tools.profile_micro',
-             'tools.profile_latency', 'tools.profile_engine2'):
+             'tools.profile_latency', 'tools.profile_engine2',
+             'tools.trace_clock'):
     assert 'sc_lego_loam_tpu_torch.' + name in names, name
 from sc_lego_loam_tpu_torch.config import ImuConfig, tiny_test_config
 from sc_lego_loam_tpu_torch.pipeline import SlamEngine

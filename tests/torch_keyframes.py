@@ -1,6 +1,7 @@
 """Hand-made keyframe stores for the batch and merge tests of the port
 (tests/test_torch_batch_loop.py, tests/test_torch_merge.py,
-tests/test_torch_loop_graph.py, tests/test_torch_batch_graph.py): keyframe
+tests/test_torch_loop_graph.py, tests/test_torch_batch_graph.py,
+tests/test_torch_trace.py): keyframe
 clouds cast from the synthetic world at true poses, stored at estimated
 poses, with their Scan Context descriptors, as numpy dicts in the field
 layout of ``mapping.KeyframeStore`` / ``scan_context.DescriptorBank``
@@ -8,6 +9,7 @@ layout of ``mapping.KeyframeStore`` / ``scan_context.DescriptorBank``
 
 import contextlib
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +105,46 @@ def sequence(cfg, world, gt, est, times, rng):
             jnp.asarray(pts), jnp.asarray(valid), cfg.sc))
     bank = dict(desc=desc, ringkey=desc.mean(-1), count=np.int32(n))
     return kf, bank
+
+
+def loop_state(cfg, outcome):
+    """A single-sequence mapper state as numpy, in the JAX field layout.
+    Closed and rejected: eight keyframes round a 4 m circle, the last where
+    the first stood with its stored pose drifted (tests/
+    test_torch_batch_loop.py's sequence 0); no candidate: three keyframes
+    0.1 s apart."""
+    world = synthetic.default_world(seed=3)
+    rng = np.random.default_rng(4)
+    if outcome == "no candidate":
+        gt = np.stack([np.eye(4, dtype=np.float32)] * 3)
+        gt[:, 0, 3], gt[:, 2, 3] = [20.0, 20.4, 20.8], 2.0
+        est, times = gt, np.float32([0, 0.1, 0.2])
+    else:
+        gt = circle(8)
+        est = gt.copy()
+        est[-1] = est[-1] @ twist([0, 0, 0.02, 0.15, -0.1, 0])
+        times = np.arange(8, dtype=np.float32)
+    kf, bank = sequence(cfg, world, gt, est, times, rng)
+    L = cfg.posegraph.max_loops
+    eye = np.eye(4, dtype=np.float32)
+    return types.SimpleNamespace(
+        kf=types.SimpleNamespace(**kf), bank=types.SimpleNamespace(**bank),
+        loops=types.SimpleNamespace(
+            i=np.zeros(L, np.int32), j=np.zeros(L, np.int32),
+            z=np.broadcast_to(eye, (L, 4, 4)).copy(), count=np.int32(0)),
+        correction=eye, pose=est[-1], last_kf_pose=est[-1],
+        last_kf_odom=est[-1].copy(), loops_closed=np.int32(0),
+        kf_dropped=np.int32(0))
+
+
+def loop_tick_cfg(base, outcome):
+    """``short_loop(loop_cfg(base))`` for ``loop_state``'s states; for
+    "rejected", with a fitness gate nothing passes."""
+    cfg = short_loop(loop_cfg(base))
+    if outcome == "rejected":
+        cfg = cfg.replace(loop=dataclasses.replace(cfg.loop,
+                                                   fitness_threshold=-1.0))
+    return cfg
 
 
 READS = ("__bool__", "item", "tolist", "cpu", "numpy", "__int__",
