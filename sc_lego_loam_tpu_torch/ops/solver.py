@@ -150,8 +150,12 @@ def converged(delta_w: torch.Tensor, delta_v: torch.Tensor,
 
 
 def freeze(done, old, new):
-    """Per-leaf ``where(done, old, new)`` over matching tuples: the fixed-
-    count LM loops keep a converged state without reading ``done`` on the
-    host (the JAX package gates its unrolled iterations with ``lax.cond``)."""
+    """Per-leaf ``where(done, old, new)`` over matching tuples: the loops
+    that run every iteration keep a converged state without reading
+    ``done`` on the host.  Its callers: ``mapping.scan_to_map``'s LM,
+    ``ops/icp.align`` and the odometry LM under the batch engine's ``vmap``
+    (a ``done`` a sequence).  The JAX package gates its unrolled iterations
+    with ``lax.cond``, as the single engine's odometry LM does with
+    ``graphs.cond``."""
     return tuple(freeze(done, o, n) if isinstance(o, tuple)
                  else torch.where(done, o, n) for o, n in zip(old, new))

@@ -19,6 +19,10 @@ What cannot run under ``vmap`` runs outside it, once for the batch:
   ``jax.vmap``.  On the card the three batched steps are CUDA graphs and
   the gates conditional nodes; eagerly they are host reads.
 
+The odometry LM, gated an iteration at a time in the single engine, has a
+``done`` a sequence here: it runs every iteration and freezes a converged
+sequence with ``torch.where`` (``odometry._lm_loop``).
+
 Cross-sequence merging: ``find_cross_loops`` scores every keyframe of
 sequence A against the whole Scan Context bank of B, ``verify_cross_loops``
 ICP-verifies the best pairs (vmapped over the pairs: one batched k=1 kNN

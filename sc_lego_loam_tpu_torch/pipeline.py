@@ -15,9 +15,10 @@ reads a device value on the host on the card, so ``SlamEngine`` there
 replays each as a CUDA graph (``graphs.py``, the JAX package's ``jit`` on
 the three steps): ``loop_step``'s gates (a tick without a candidate skips
 the ICP, one without an accepted factor the re-solve, a converged re-solve
-its remaining iterations) are CUDA-graph conditional nodes
-(``graphs.cond``, the JAX package's ``lax.cond``); run eagerly they are
-host reads of the flags (see ``loop.device_tick``).  The trajectory and
+its remaining iterations) and the odometry LM's iterations after it has
+converged are CUDA-graph conditional nodes (``graphs.cond``, the JAX
+package's ``lax.cond``); run eagerly they are host reads of the flags (see
+``loop.device_tick``).  The trajectory and
 the launch counts of conditional bodies are fetched once, by
 ``trajectory_array``.  State updates are in place where a buffer is large
 (trajectory rings, keyframe and descriptor banks).

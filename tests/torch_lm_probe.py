@@ -1,10 +1,12 @@
 """The LM iterations the convergence deltas keep (a script, not a test):
 an eager engine over the bench's figure-8 records, for every odometry LM
 (``odometry._lm_loop``) and every ``mapping.scan_to_map``, the first
-iteration whose convergence flag was already set.  The JAX package stops
-there (its iterations are gated with ``lax.cond``); the port's fixed-count
-loops run on and keep the converged state with ``solver.freeze``, so the
-iterations after it, and the researches among them, are paid for nothing.
+iteration whose convergence flag was already set, read from the
+``done`` each iteration's probe (``graphs.probe``) carries.  The JAX
+package stops there (its iterations are gated with ``lax.cond``), and so
+does the port's odometry LM (``graphs.cond``); ``scan_to_map`` runs on
+and keeps the converged state with ``solver.freeze``, so its iterations
+after it, and the researches among them, are paid for nothing.
 ``tools/profile_iters``' fit prices them.
 
     PYTHONPATH=. python tests/torch_lm_probe.py [scans] [real|ordered]
@@ -30,38 +32,38 @@ from sc_lego_loam_tpu_torch.runner import mulran_engine_config
 from sc_lego_loam_tpu_torch.tools import bench, profile_iters
 
 
-class RecordingSolver:
-    """``ops/solver`` with ``freeze`` recording the flag of each call it
-    gets from the LM (one a loop iteration: its nested calls go to the
-    module's own ``freeze``)."""
+class RecordingGraphs:
+    """``graphs`` with ``probe`` appending the flag its LM iteration site
+    reports to ``flags`` (one record an iteration)."""
 
-    def __init__(self, solver):
-        self._solver = solver
+    def __init__(self, graphs, site):
+        self._graphs = graphs
+        self._site = site
         self.flags = None
 
     def __getattr__(self, name):
-        return getattr(self._solver, name)
+        return getattr(self._graphs, name)
 
-    def freeze(self, done, old, new):
-        if self.flags is not None:
-            self.flags.append(bool(done))
-        return self._solver.freeze(done, old, new)
+    def probe(self, site, value=None):
+        if self.flags is not None and site == self._site:
+            self.flags.append(bool(value))
+        return self._graphs.probe(site, value)
 
 
-def record(module, name, solver, out):
+def record(module, name, graphs, out, cap):
     """Wrap ``module.name`` so that each call appends to ``out`` the
-    iterations its LM needed (the first iteration entered converged) and
-    the iterations it ran."""
+    iterations its LM needed (the first iteration entered converged, or
+    ``cap``) and ``cap``."""
     fn = getattr(module, name)
 
     def wrapped(*args, **kwargs):
-        solver.flags = []
+        graphs.flags = []
         try:
             return fn(*args, **kwargs)
         finally:
-            flags, solver.flags = solver.flags, None
-            out.append((next((i for i, d in enumerate(flags) if d),
-                             len(flags)), len(flags)))
+            flags, graphs.flags = graphs.flags, None
+            out.append((next((i + 1 for i, d in enumerate(flags) if d), cap),
+                        cap))
 
     setattr(module, name, wrapped)
 
@@ -101,11 +103,13 @@ def main(argv=None):
             cfg.lidar, bench.N_SCANS, trajectory="figure8", noise=0.01,
             seed=bench.SEED, shuffle=False, radius=30.0, loops=1.05)
     runs = {"odometry": [], "scan_to_map": []}
-    odo_solver = RecordingSolver(odometry.solver)
-    map_solver = RecordingSolver(mapping.solver)
-    odometry.solver, mapping.solver = odo_solver, map_solver
-    record(odometry, "_lm_loop", odo_solver, runs["odometry"])
-    record(mapping, "scan_to_map", map_solver, runs["scan_to_map"])
+    odo_graphs = RecordingGraphs(odometry.graphs, "perception.lm_iter")
+    map_graphs = RecordingGraphs(mapping.graphs, "mapping.lm_iter")
+    odometry.graphs, mapping.graphs = odo_graphs, map_graphs
+    record(odometry, "_lm_loop", odo_graphs, runs["odometry"],
+           cfg.odom.max_iterations)
+    record(mapping, "scan_to_map", map_graphs, runs["scan_to_map"],
+           cfg.mapping.max_iterations)
     engine = SlamEngine(cfg, device=device, eager=True)
     for i in range(args.scans):
         engine.process_scan(scans[i], valids[i], t=i * 0.1)
