@@ -13,6 +13,12 @@ float32 points in capture order (column-major) and a bool validity mask.
 The worlds are fixed so that every seed asks for the same work (the
 places, hence the loop ticks that verify and close); the seed changes
 the noise on every range.
+
+A configuration with an ``imu_stream`` block also gets a 9-axis IMU
+stream for each stream, cast on the device from the same trajectory
+(``imu_samples``: the port's ``utils/synthetic.make_imu_samples``, frozen
+here), its noise from a generator of its own, so that the scans are the
+same with or without it.
 """
 
 from __future__ import annotations
@@ -25,6 +31,20 @@ import torch
 
 _INF = 1e9
 SCAN_PERIOD = 0.1          # seconds between scans (10 Hz)
+GRAVITY = 9.81             # m/s^2, along the world's +z in the readings
+
+
+class Imu(NamedTuple):
+    """The IMU stream of a drive, on the host, in the contract of the
+    port's ``SlamEngine.push_imu``: world roll/pitch/yaw (zyx), body
+    linear acceleration with gravity, body angular rate."""
+
+    times: np.ndarray      # (M,) float64 s, scan i spans [i, i+1] periods
+    rpy: np.ndarray        # (M, S, 3) float32 rad
+    acc: np.ndarray        # (M, S, 3) float32 m/s^2
+    gyro: np.ndarray       # (M, S, 3) float32 rad/s
+    ends: np.ndarray       # (n,) the samples due by the end of scan i:
+                           # times[:ends[i]]
 
 
 class Drive(NamedTuple):
@@ -33,6 +53,7 @@ class Drive(NamedTuple):
     scans: np.ndarray      # (n, S, N, 3) float32, sensor frame
     valids: np.ndarray     # (n, S, N) bool
     seeds: tuple           # the noise seed of each stream
+    imu: Imu | None = None  # None where the configuration has no stream
 
 
 def world_arrays(seed: int, extent: float = 90.0, n_boxes: int = 40,
@@ -215,6 +236,64 @@ def cast(lidar: dict, poses, seed: int, noise: float, boxes, cyls,
     return torch.cat(pts_out), torch.cat(valid_out)
 
 
+def _rate(x, period: float):
+    """d/dt of knot values x (n, ...) ``period`` apart: central
+    differences inside, one-sided at the ends (``numpy.gradient``)."""
+    d = torch.empty_like(x)
+    d[1:-1] = (x[2:] - x[:-2]) / (2 * period)
+    d[0] = (x[1] - x[0]) / period
+    d[-1] = (x[-1] - x[-2]) / period
+    return d
+
+
+def imu_samples(poses, stream: dict, gen, period: float = SCAN_PERIOD):
+    """(times, rpy, acc, gyro) of an IMU riding the poses ``poses`` (n,4,4,
+    world from sensor, pose k at time k * ``period``), sampled at
+    ``stream["rate_hz"]`` from time 0 to the last pose: the knots' world
+    acceleration by central differences of the positions, twice, and
+    their body rate log(R_k^T R_k+1) / period (the last knot keeps the one
+    before); each sample between knots k and k+1 at the fraction f of the
+    way, its attitude R_k exp(f log(R_k^T R_k+1)), its acceleration and
+    rate linear in f; then Gaussian noise of ``stream["noise_rpy"]``,
+    ``["noise_acc"]`` and ``["noise_gyro"]`` from ``gen``, in that
+    order.  Float64 tensors on the poses' device."""
+    n, T, dev = poses.shape[0], period, poses.device
+    R, pos = poses[:, :3, :3], poses[:, :3, 3]
+    acc_w = _rate(_rate(pos, T), T)
+    omega = torch.empty_like(pos)
+    omega[:-1] = so3_log(R[:-1].transpose(-1, -2) @ R[1:]) / T
+    omega[-1] = omega[-2]
+    rate = float(stream["rate_hz"])
+    m = int(math.floor((n - 1) * T * rate)) + 1
+    times = torch.arange(m, dtype=poses.dtype, device=dev) / rate
+    k = torch.clamp(torch.floor(times / T).long(), max=n - 2)
+    f = torch.clamp(times / T - k, 0.0, 1.0)[:, None]
+    R0 = R[k]
+    Rt = R0 @ so3_exp(f * so3_log(R0.transpose(-1, -2) @ R[k + 1]))
+    a_w = (1 - f) * acc_w[k] + f * acc_w[k + 1]
+    gyro = (1 - f) * omega[k] + f * omega[k + 1]
+    rpy = torch.stack([
+        torch.atan2(Rt[:, 2, 1], Rt[:, 2, 2]),
+        torch.asin(torch.clamp(-Rt[:, 2, 0], -1.0, 1.0)),
+        torch.atan2(Rt[:, 1, 0], Rt[:, 0, 0])], -1)
+    a_w[:, 2] += GRAVITY
+    acc = (Rt.transpose(-1, -2) @ a_w[..., None])[..., 0]
+    out = []
+    for x, key in ((rpy, "noise_rpy"), (acc, "noise_acc"),
+                   (gyro, "noise_gyro")):
+        sd = float(stream[key])
+        out.append(x + sd * torch.randn(x.shape, generator=gen,
+                                        dtype=x.dtype, device=dev)
+                   if sd > 0 else x)
+    return (times, *out)
+
+
+def imu_seed(seed: int) -> int:
+    """The IMU noise seed of a stream whose range noise has ``seed``."""
+    ss = np.random.SeedSequence([int(seed) % (2 ** 63), 0x696D75])
+    return int(ss.generate_state(1, np.uint64)[0] % (2 ** 62))
+
+
 def stream_seeds(seed: int, streams: int) -> tuple:
     """The noise seed of each stream: the run's seed for one stream, seeds
     drawn from it for more."""
@@ -226,11 +305,12 @@ def stream_seeds(seed: int, streams: int) -> tuple:
 
 
 def make_drive(lidar: dict, traffic: dict, seed: int, n: int, streams: int,
-               device) -> Drive:
+               device, imu: dict | None = None) -> Drive:
     """``n`` scans for each of ``streams`` streams, all on the mix's
     trajectory, stream s in the world of ``traffic["worlds"][s]`` (cycled)
     with its noise from ``stream_seeds``; cast on ``device`` and brought
-    to the host in one array."""
+    to the host in one array.  ``imu``: a configuration's ``imu_stream``
+    block, or None for no IMU stream."""
     seeds = stream_seeds(seed, streams)
     poses = trajectory(traffic, n + 1, device)
     N = lidar["n_scan"] * lidar["horizon_scan"]
@@ -247,4 +327,16 @@ def make_drive(lidar: dict, traffic: dict, seed: int, n: int, streams: int,
         scans[:, s] = pts.cpu().numpy()
         valids[:, s] = valid.cpu().numpy()
         del pts, valid
-    return Drive(scans, valids, seeds)
+    if imu is None:
+        return Drive(scans, valids, seeds)
+    chans = []
+    for ns in seeds:
+        gen = torch.Generator(device=poses.device)
+        gen.manual_seed(imu_seed(ns))
+        times, *xs = imu_samples(poses, imu, gen)
+        chans.append(torch.stack(xs))                      # (3, M, 3)
+    chans = torch.stack(chans, 2).to(torch.float32).cpu().numpy()
+    times = times.cpu().numpy()
+    ends = np.searchsorted(times, (np.arange(n) + 1) * SCAN_PERIOD + 1e-9,
+                           side="right")
+    return Drive(scans, valids, seeds, Imu(times, *chans, ends))

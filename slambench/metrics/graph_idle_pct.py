@@ -8,7 +8,7 @@ from slambench import program
 
 
 def read(rec):
-    p = program.record(rec)
+    p = rec.get("program")
     if not p:
         return None
     w0, w1 = p["window_ns"]

@@ -4,11 +4,9 @@ which ``done`` first held to the end of its last iteration (0 where it
 never converged), from the program's own trace (``rec["program"]``: one
 record at each LM iteration's end); the mean over the phase's scans."""
 
-from slambench import program
-
 
 def read(rec):
-    p = program.record(rec)
+    p = rec.get("program")
     past = []
     for s in (p or {}).get("scans", []):
         lm = s.get("lm")

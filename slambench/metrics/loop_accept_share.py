@@ -3,11 +3,9 @@ accepted a factor over those that ran, in the program phase, from the
 records at each verification body's end (``rec["program"]``); None where
 no verification ran."""
 
-from slambench import program
-
 
 def read(rec):
-    p = program.record(rec)
+    p = rec.get("program")
     ran = accepted = 0
     for s in (p or {}).get("scans", []):
         tick = s.get("loop_tick")

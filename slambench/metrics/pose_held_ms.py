@@ -7,11 +7,9 @@ trace (``rec["program"]``)."""
 
 import numpy as np
 
-from slambench import program
-
 
 def read(rec):
-    p = program.record(rec)
+    p = rec.get("program")
     if not p or not p.get("receipt_ns"):
         return None
     held = [(r - s["perception"][1]) * 1e-6

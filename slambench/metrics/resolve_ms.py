@@ -2,11 +2,9 @@
 body, from its ``begin`` to its ``end`` record, the mean over the program
 phase's closing ticks (``rec["program"]``); None where no tick closed."""
 
-from slambench import program
-
 
 def read(rec):
-    p = program.record(rec)
+    p = rec.get("program")
     ms = []
     for s in (p or {}).get("scans", []):
         tick = s.get("loop_tick")

@@ -4,9 +4,14 @@ it reports; each of those is a file of its own under ``slambench/``:
 
     configs/<config>.json      the deployment: engine kind, streams, the
                                engine's settings as run, warm-up and drive
-                               length, what was assumed
-    traffic/<traffic>.json     the drive's parameters and the mode
-                               (replay or latency)
+                               length, what was assumed, and with the IMU
+                               on its sensor (``imu_stream``: ``rate_hz``,
+                               ``noise_rpy``, ``noise_acc``, ``noise_gyro``)
+    traffic/<traffic>.json     the drive's parameters, the mode (replay or
+                               latency) and the scans of each traced phase
+                               (``trace_handin_scans``, latency only;
+                               ``trace_device_scans``,
+                               ``trace_program_scans``)
     limits/<workload>.json     the limit of each number ``correct`` compares
     metrics/<metric>.py        the reader of one per-layer metric
 
@@ -45,6 +50,24 @@ def _reports(metric: dict, workload: str) -> bool:
     return "workloads" not in metric or workload in metric["workloads"]
 
 
+def check_config(config: dict):
+    """Refuse a configuration whose IMU stream and engine disagree: an
+    ``imu_stream`` block exactly where ``pipeline.imu.enabled`` holds, and
+    no fleet (``BatchEngine`` refuses the IMU)."""
+    name = config.get("name", "?")
+    stream = "imu_stream" in config
+    enabled = bool(config["pipeline"]["imu"]["enabled"])
+    if stream != enabled:
+        raise ValueError(
+            f"configuration {name}: imu_stream "
+            f"{'given' if stream else 'missing'} with pipeline.imu.enabled "
+            f"{enabled}; give both or neither")
+    if enabled and config["engine"] != "single":
+        raise ValueError(f"configuration {name}: engine "
+                         f"{config['engine']!r} with the IMU on; only a "
+                         "single engine takes an IMU")
+
+
 def load_reader(name: str, root: str = HERE):
     """``read`` of ``metrics/<name>.py``."""
     path = os.path.join(root, "metrics", name + ".py")
@@ -64,9 +87,10 @@ def load_cell(workload: str, benchmark: str, root: str = HERE) -> Cell:
         raise KeyError(f"no workload {workload!r} in {benchmark}")
     w = cells[workload]
     per_layer = [m for m in bench["per_layer"] if _reports(m, workload)]
+    config = _load(os.path.join(root, "configs", w["config"] + ".json"))
+    check_config(config)
     return Cell(
-        name=workload, chips=int(w["chips"]),
-        config=_load(os.path.join(root, "configs", w["config"] + ".json")),
+        name=workload, chips=int(w["chips"]), config=config,
         traffic=_load(os.path.join(root, "traffic", w["traffic"] + ".json")),
         limits=_load(os.path.join(root, "limits", workload + ".json")),
         end_to_end=[m for m in bench["end_to_end"]

@@ -1,17 +1,12 @@
 """The program's own trace in a traced run (``rec["program"]``).
 
-A phase of its own, after the record's other phases: ``seconds`` / 2 in
-the cell's own mode, unprofiled, with the engine's tracer
+A phase of its own, the last of ``session.trace_record``'s: a fixed count
+of scans in the cell's own mode, unprofiled, with the engine's tracer
 (``engine.trace``: host spans in ``process_scan``, probe records inside
 the step graphs, on one clock) on for the phase and drained after it.
-
-``run.run_cell`` hands a per-layer reader the traced run's record alone,
-and the phase needs the run: it hands its scans in through ``Run.step``,
-so that they are published and judged like every other.  So the first
-reader that asks for the phase (``record``) finds the run in the frame of
-its caller that holds this very record, runs the phase there once and
-keeps it in the record; the other readers read it from there.  A program
-without the tracer gives ``None``, and every reader of it reads null.
+Its scans go in through ``Run.step``, so they are published and judged
+like every other.  A program without the tracer gives ``None``, and
+every reader of it reads null.
 """
 
 from __future__ import annotations
@@ -23,12 +18,11 @@ import time
 from . import session
 
 
-def stamped(run, seconds: float):
-    """The latency client for ``seconds``, each scan's hand-in and receipt
-    of its pose as ``time.perf_counter_ns()``."""
+def stamped(run, scans: int):
+    """The latency client over ``scans`` scans, each scan's hand-in and
+    receipt of its pose as ``time.perf_counter_ns()``."""
     stamps = []
-    t0 = time.perf_counter()
-    while run.room() and time.perf_counter() - t0 < seconds:
+    while run.room() and len(stamps) < scans:
         h0 = time.perf_counter_ns()
         pose = run.step()
         pose.cpu()
@@ -87,8 +81,8 @@ def idle_gaps(program: dict, top: int = 10) -> list:
     return [[name(a, b), (b - a) * 1e-6] for a, b in gaps]
 
 
-def phase(run, mode: str, seconds: float, lead: int):
-    """The program's own records over ``seconds`` in the cell's own mode
+def phase(run, mode: str, scans: int, lead: int):
+    """The program's own records over ``scans`` scans in the cell's own mode
     (a replay with its ``lead``, or the latency client with each scan's
     hand-in and receipt stamped), unprofiled: the engine's tracer on for
     the phase and drained after it (``utils/profiling.StageTimer.drain``:
@@ -105,9 +99,9 @@ def phase(run, mode: str, seconds: float, lead: int):
     w0 = time.perf_counter_ns()
     stamps = []
     if mode == "latency":
-        stamps = stamped(run, seconds)
+        stamps = stamped(run, scans)
     else:
-        run.replay(seconds, lead)
+        run.replay(0, lead, scans=scans)
     w1 = time.perf_counter_ns()
     trace.off()
     program = trace.drain()
@@ -119,23 +113,3 @@ def phase(run, mode: str, seconds: float, lead: int):
     print("slambench: program idle gaps "
           + json.dumps(program["idle_gaps"]), file=sys.stderr, flush=True)
     return program
-
-
-def record(rec: dict):
-    """``rec["program"]``, running the phase first if no reader has: with
-    the run, ``seconds`` and ``lead`` of the caller that holds ``rec``
-    (``run.run_cell``), for ``seconds`` / 2 in ``rec["mode"]``.  None
-    where no caller holds it."""
-    if "program" not in rec:
-        rec["program"] = None
-        frame = sys._getframe(1)
-        while frame is not None:
-            at = frame.f_locals
-            if at.get("rec") is rec and all(
-                    k in at for k in ("run", "seconds", "lead")):
-                rec["program"] = phase(at["run"], rec["mode"],
-                                       at["seconds"] / 2, int(at["lead"]))
-                break
-            frame = frame.f_back
-        del frame
-    return rec["program"]

@@ -8,8 +8,11 @@ scans to the host, builds the engine, warms up the cell's shapes, then
 measures for ``--seconds`` seconds in the cell's mode (``session.py``).
 With ``--trace 0`` the result carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, read by ``metrics/<name>.py`` from
-CUDA events and one ``torch.profiler`` stretch.  After the window the
-program's answers are judged against the plain reference (``judge.py``).
+CUDA events, one ``torch.profiler`` stretch and the program's own trace,
+each phase over the fixed count of scans its mix names
+(``trace_<phase>_scans``), whatever ``--seconds`` says.  After the window
+the program's answers are judged against the plain reference
+(``judge.py``).
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device`` (and ``breakdown``
@@ -72,7 +75,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
 
     phases = {"start": time.time() - t0}
     drive = caster.make_drive(lidar, traffic, seed, int(cfg["drive_scans"]),
-                              streams, device)
+                              streams, device, cfg.get("imu_stream"))
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -82,7 +85,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     phases["engine"] = time.time() - t0
     run = session.Run(system, drive)
     run.warm_up(int(cfg["warmup_scans"]))
-    first = run.next
     setup_s = time.time() - t0
     phases["warm_up"] = setup_s
     print("slambench: set-up s at the end of each phase "
@@ -90,9 +92,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
 
     mode, lead = traffic["mode"], int(traffic["lead"])
     metrics, breakdown, rec = {}, None, None
+    first = run.next
     if trace:
-        rec = session.trace_record(run, mode, seconds, lead,
-                                   int(cfg["trace_scans"]),
+        rec = session.trace_record(run, traffic, int(cfg["trace_scans"]),
                                    int(cfg["trace_warm_scans"]))
         for m in cell.per_layer:
             v = cell.readers[m["name"]](rec)
@@ -112,6 +114,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
               f"p95 {np.percentile(lat, 95)} p99 {np.percentile(lat, 99)} "
               f"max {max(lat)} over {len(lat)} scans", file=log)
     if not trace:
+        push = [v for i, v in system.push_ms.items() if i >= first]
+        if push:
+            # The host's share of the window in the IMU pushes.
+            print(f"slambench: imu push host ms mean {np.mean(push)} p95 "
+                  f"{np.percentile(push, 95)} over {len(push)} pushes, "
+                  f"{sum(push) / (window_s * 1e3)} of the window",
+                  file=log)
         e2e["setup_s"] = setup_s
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}

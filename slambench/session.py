@@ -2,9 +2,12 @@
 
 The port is driven only through ``SlamEngine.process_scan`` (one vehicle)
 and ``BatchEngine.process_scans`` (a fleet of streams in lockstep); both
-take host numpy scans and return the fused poses as device tensors.  The
-harness reads the engines' host tick counters and, after the window, the
-keyframe and loop-factor banks that ``correct`` judges.
+take host numpy scans and return the fused poses as device tensors.  A
+drive with an IMU stream feeds a single engine the samples due by each
+scan's end in one ``SlamEngine.push_imu_batch`` before the scan, inside
+the same hand-in.  The harness reads the engines' host tick counters and,
+after the window, the keyframe and loop-factor banks that ``correct``
+judges.
 
 Two modes, both closed loops of one client:
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -69,11 +73,22 @@ class System:
             torch.backends.cuda.matmul.allow_tf32 = True
             torch.backends.cudnn.allow_tf32 = True
         self.device = torch.device(device)
+        self.push_ms = {}          # scan -> host ms of its IMU push
 
     def step(self, drive: caster.Drive, i: int):
         """Hand in scan ``i`` of every stream; the fused pose(s), on the
-        device."""
+        device.  With an IMU stream, first the samples due by the scan's
+        end that no earlier scan pushed, in one batch (a single engine;
+        ``plan`` refuses a fleet with the IMU on)."""
         t = i * SCAN_PERIOD
+        imu = drive.imu
+        if imu is not None:
+            a, b = imu.ends[i - 1] if i else 0, imu.ends[i]
+            if b > a:
+                h0 = time.perf_counter()
+                self.engine.push_imu_batch(imu.times[a:b], imu.rpy[a:b, 0],
+                                           imu.acc[a:b, 0], imu.gyro[a:b, 0])
+                self.push_ms[i] = (time.perf_counter() - h0) * 1e3
         if self.kind == "single":
             return self.engine.process_scan(drive.scans[i, 0],
                                             drive.valids[i, 0], t=t)
@@ -219,32 +234,38 @@ class Run:
                 closed = self._closes(closed)
         return lat, time.perf_counter() - t0
 
-    def device_calls(self, seconds: float):
-        """Each call timed alone on the device: a synchronize, a device
-        sleep (so that the host has put the whole call on the stream
-        before the device reaches it), then CUDA events around the call;
-        until ``seconds``.  Returns (host ms of each call, event pairs)."""
+    def device_calls(self, scans: int):
+        """Each of ``scans`` calls timed alone on the device: a synchronize,
+        a device sleep (so that the host has put the whole call on the
+        stream before the device reaches it), then CUDA events around the
+        call.  Returns (host ms of each call, device ms of each call; on
+        the CPU, which has no events, the host ms again)."""
         host, events = [], []
         dev = self.system.device
+        cuda = dev.type == "cuda"
         closed = self.system.closed()
-        t0 = time.perf_counter()
-        while self.room() and time.perf_counter() - t0 < seconds:
+        first = self.next
+        while self.room() and self.next - first < scans:
             sync(dev)
             if self.next - 1 in self.loop_at:
                 closed = self._closes(closed)
-            e0, e1 = torch.cuda.Event(enable_timing=True), \
-                torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SLEEP)
-            e0.record()
+            if cuda:
+                e0, e1 = torch.cuda.Event(enable_timing=True), \
+                    torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SLEEP)
+                e0.record()
             h0 = time.perf_counter()
             self.step()
             host.append((time.perf_counter() - h0) * 1e3)
-            e1.record()
-            events.append((e0, e1))
+            if cuda:
+                e1.record()
+                events.append((e0, e1))
         sync(dev)
         if self.next - 1 in self.loop_at:
             self._closes(closed)
-        return host, events
+        if not cuda:
+            return host, list(host)
+        return host, [a.elapsed_time(b) for a, b in events]
 
     def published(self) -> np.ndarray:
         """(n, streams, 4, 4) float64 poses of every scan handed in."""
@@ -260,40 +281,68 @@ def _kinds(run: Run, first: int, n: int):
             [i in run.close_at for i in idx])
 
 
-def trace_record(run: Run, mode: str, seconds: float, lead: int,
-                 profile_scans: int, warm_scans: int) -> dict:
-    """The traced run's readings.  A latency cell first runs its client for
-    ``seconds`` / 2 (hand-in to pose per scan); then every cell times each
-    call alone on the device (``Run.device_calls``) for the rest of
-    ``seconds``; both phases read which loop ticks closed.  Last, a
-    ``torch.profiler`` session over ``profile_scans`` scans in the cell's
-    own mode, after ``warm_scans`` scans under the profiler unrecorded
-    (the first replays of each graph under it are slow).  Under the
-    profiler a graph launch costs the host far more than without it, so
-    the session's idle share reads the profiler (PERF.md); its kernels
-    are the program's."""
+def phase_bounds(run: Run, name: str, first: int, closed=None) -> list:
+    """[first, last] scan of a traced phase that began at ``first`` and
+    ended at ``run.next``, printed on stderr with the loop ticks among
+    them and, where the phase read them (``closed``), those that closed."""
+    last = run.next - 1
+    ticks = sum(first <= i <= last for i in run.loop_at)
+    said = "" if closed is None else f", {closed} closed"
+    print(f"slambench: traced phase {name} scans {first}-{last}: "
+          f"{ticks} loop ticks{said}", file=sys.stderr, flush=True)
+    return [first, last]
+
+
+def _closed(run: Run, first: int) -> int:
+    return sum(i >= first for i in run.close_at)
+
+
+def trace_record(run: Run, traffic: dict, profile_scans: int,
+                 warm_scans: int) -> dict:
+    """The traced run's readings in the mix ``traffic``'s mode, each phase
+    over a fixed count of scans that the mix names, so that every program,
+    fast or slow, reads the same stretch of the drive.  A latency cell
+    first runs its client over ``trace_handin_scans`` scans (hand-in to
+    pose per scan); then every cell times each of ``trace_device_scans``
+    calls alone on the device (``Run.device_calls``); both phases read
+    which loop ticks closed.  Then a ``torch.profiler`` session over
+    ``profile_scans`` scans in the cell's own mode, after ``warm_scans``
+    scans under the profiler unrecorded (the first replays of each graph
+    under it are slow).  Under the profiler a graph launch costs the host
+    far more than without it, so the session's idle share reads the
+    profiler (PERF.md); its kernels are the program's.  Last, the
+    program's own trace over ``trace_program_scans`` scans in the cell's
+    own mode, unprofiled (``program.phase``).  ``rec["phases"]`` holds
+    each phase's first and last scan."""
+    from . import program
+
+    mode, lead = traffic["mode"], int(traffic["lead"])
     rec = {"mode": mode, "streams": run.system.streams}
-    device_s = seconds
+    phases = rec["phases"] = {}
     if mode == "latency":
         first = run.next
-        rec["handin_ms"], _ = run.latency(seconds / 2, closes=True)
+        rec["handin_ms"], _ = run.latency(
+            0, scans=int(traffic["trace_handin_scans"]), closes=True)
         rec["handin_map"], rec["handin_loop"], rec["handin_close"] = _kinds(
             run, first, len(rec["handin_ms"]))
-        device_s = seconds / 2
+        phases["handin"] = phase_bounds(run, "handin", first,
+                                        _closed(run, first))
     first = run.next
-    host, events = run.device_calls(device_s)
-    rec["host_ms"] = host
-    rec["device_ms"] = [a.elapsed_time(b) for a, b in events]
+    rec["host_ms"], rec["device_ms"] = run.device_calls(
+        int(traffic["trace_device_scans"]))
     rec["map_moved"], rec["loop_moved"], rec["close_moved"] = _kinds(
-        run, first, len(events))
+        run, first, len(rec["host_ms"]))
+    phases["device"] = phase_bounds(run, "device", first,
+                                    _closed(run, first))
 
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    def stretch(scans):
+    def stretch(n):
         if mode == "latency":
-            return len(run.latency(0, scans=scans)[0])
-        return run.replay(0, lead, scans=scans)[0]
+            return len(run.latency(0, scans=n)[0])
+        return run.replay(0, lead, scans=n)[0]
 
+    first = run.next
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
@@ -303,4 +352,12 @@ def trace_record(run: Run, mode: str, seconds: float, lead: int,
             n = stretch(profile_scans)
         prof.step()
     rec["profile"] = devtrace.read(prof, n) if n else None
+    phases["profile"] = phase_bounds(run, "profile", first)
+    first = run.next
+    rec["program"] = p = program.phase(
+        run, mode, int(traffic["trace_program_scans"]), lead)
+    phases["program"] = phase_bounds(
+        run, "program", first, p and sum(
+            bool(s.get("loop_tick") and s["loop_tick"]["closed"])
+            for s in p["scans"]))
     return rec

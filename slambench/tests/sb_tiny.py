@@ -33,16 +33,23 @@ def copy_tree(dst):
 
 def add_cell(dst, name="tiny", engine="single", streams=1, drive_scans=14,
              traffic="fig8.replay", metrics=("perception_ms",),
-             revisit_gap_s=None):
+             revisit_gap_s=None, imu_stream=None, imu_enabled=None):
     """New files for a config ``name``, and a cell ``name.<traffic>`` in
     dst's BENCHMARK.json reporting ``metrics``; returns the planned
     cell.  ``revisit_gap_s`` sets the judge's revisit gap and the loop
-    detector's radius-search time gap together."""
+    detector's radius-search time gap together.  ``imu_stream``: the
+    configuration's IMU sensor block, with ``pipeline.imu.enabled`` on
+    unless ``imu_enabled`` says otherwise."""
     cfg = json.load(open(os.path.join(dst, "configs",
                                       "mulran-os1-64.json")))
     cfg.update(name=name, engine=engine, streams=streams,
                drive_scans=drive_scans,
                pipeline=dataclasses.asdict(tiny_test_config()))
+    if imu_stream is not None:
+        cfg["imu_stream"] = imu_stream
+    cfg["pipeline"]["imu"]["enabled"] = (imu_stream is not None
+                                         if imu_enabled is None
+                                         else imu_enabled)
     if revisit_gap_s is not None:
         cfg["revisit_gap_s"] = revisit_gap_s
         cfg["pipeline"]["loop"]["rs_time_gap"] = revisit_gap_s

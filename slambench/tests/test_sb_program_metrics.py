@@ -1,7 +1,7 @@
 """The readers of the program's own trace (``rec["program"]``, written by
 ``program.phase``) on hand-made phases, and the traced record gaining
-that phase alone: ``trace_record`` and its readers leave every other key
-of the record as it was."""
+that phase alone: with a program that traces, ``trace_record`` leaves
+every other key of the record as it was."""
 
 import types
 
@@ -114,10 +114,9 @@ class _Run:
     def latency(self, seconds, scans=None, closes=False):
         return [10.0] * self._take(scans or 4), 0.04
 
-    def device_calls(self, seconds):
-        ev = types.SimpleNamespace(elapsed_time=lambda other: 2.0)
-        n = self._take(5)
-        return [1.0] * n, [(ev, ev)] * n
+    def device_calls(self, scans):
+        n = self._take(scans)
+        return [1.0] * n, [2.0] * n
 
     def replay(self, seconds, lead, scans=None):
         return self._take(scans or 6), 0.06
@@ -150,10 +149,12 @@ NEW = ("graph_idle_pct", "lm_past_convergence_ms", "pose_held_ms",
        "resolve_ms", "loop_accept_share")
 
 
-def _traced(run, mode, seconds=2.0, lead=4):
+def _traced(run, mode, lead=4):
     """What ``run.run_cell`` does in a traced run: the record, then the
-    readers of the program's trace, which run the phase once."""
-    rec = session.trace_record(run, mode, seconds, lead, 3, 1)
+    readers of the program's trace."""
+    traffic = {"mode": mode, "lead": lead, "trace_handin_scans": 4,
+               "trace_device_scans": 5, "trace_program_scans": 3}
+    rec = session.trace_record(run, traffic, 3, 1)
     values = {name: _read(name, rec) for name in NEW}
     return rec, values
 
@@ -162,7 +163,7 @@ def _traced(run, mode, seconds=2.0, lead=4):
 def test_trace_record_adds_the_phase_alone(mode):
     """The same readings with and without a program that traces, but for
     ``rec["program"]``: None for a program without a tracer, and every
-    reader of it null; the phase runs once for all five readers."""
+    reader of it null; the phase runs once, last."""
     plain, none = _traced(_Run(types.SimpleNamespace()), mode)
     trace = _Trace()
     traced, _ = _traced(_Run(types.SimpleNamespace(trace=trace)), mode)
@@ -174,11 +175,12 @@ def test_trace_record_adds_the_phase_alone(mode):
                         "idle_gaps", "scans"}
     assert len(got["receipt_ns"]) == (3 if mode == "latency" else 0)
     keys = {"mode", "streams", "host_ms", "device_ms", "map_moved",
-            "loop_moved", "close_moved", "profile"}
+            "loop_moved", "close_moved", "profile", "phases"}
     if mode == "latency":
         keys |= {"handin_ms", "handin_map", "handin_loop", "handin_close"}
     assert set(plain) == set(traced) == keys
-    for k in keys - {"profile"}:
+    for k in keys - {"profile", "phases"}:
         assert plain[k] == traced[k], k
-    # A reader with no run above it reads null and runs nothing.
-    assert program.record({"mode": mode}) is None
+    assert list(traced["phases"]) == (["handin"] if mode == "latency"
+                                      else []) + ["device", "profile",
+                                                  "program"]
